@@ -1,0 +1,481 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's packed analytics engine once on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+run from the root of a checkout, on a machine with one Hopper card and the
+CUDA toolkit.  Phases:
+
+1. Set-up: print the card's name and power limit (nvidia-smi), build the
+   four CUDA kernels from ``src/repro_torch/kernels/csrc`` and print the
+   build seconds.
+2. Data: 16 synthetic corpora (64 files x 4000 tokens, vocab 20,000,
+   Zipfian words with 60% repeated phrases) from a fixed seed, compressed
+   with the port's Sequitur and packed into one ``GrammarBatch`` on the
+   card.  The paper's datasets run to gigabytes; host-side Python Sequitur
+   is what cuts the scale here.  The corpus count is lowered only if the
+   dense ELL plan would exceed ``ELL_PLAN_MAX_ENTRIES``, so that every
+   explicit ELL method resolves to itself.  A second, smaller pack (a file
+   subset) is sized so the per-file ELL rounds are admitted
+   (``ell_vector_plan_ok``); at the full pack they degrade to segment_sum.
+3. Engine (the main path): ``run_batched`` for all six analytics under all
+   six traversal methods, word count and sort also under the kernel
+   backend, on both packs — every result checked exactly against a numpy
+   decompress-then-scan oracle built from the raw token files.  Launch
+   counts are zeroed just before and read just after.
+4. Kernels: each kernel at the main path's shapes against its plain torch
+   version on the same card inputs (exact equality: all values are
+   integer-valued float32 below 2^24), timed with CUDA events (median of
+   20 runs after warm-up) beside its bound (bytes over 3.35 TB/s or
+   float32 operations over 67 TFLOP/s) and, for the histogram, a masked
+   ``torch.bincount`` yardstick the port never calls.
+
+It prints one ``{"kernels": [...]}`` line and, last, the device line, and
+exits non-zero on any failure — or at once when there is no CUDA device or
+no ``src/repro_torch`` beside it.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# the data (phase 2)
+N_CORPORA = 16
+N_FILES = 64
+TOKENS_PER_FILE = 4000
+VOCAB = 20000
+PHRASE_RATE = 0.6
+N_PHRASES = 200
+PHRASE_LEN = 10
+SEED = 0
+SEQ_L = 3
+
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+TIMING_REPS = 20
+TIMING_WARMUP = 3
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+# ----------------------------------------------------------------------- #
+# Oracle: decompress-then-scan over the raw token files                    #
+# ----------------------------------------------------------------------- #
+def oracle(files, vocab: int, l: int = SEQ_L) -> dict:
+    """The six analytics of one corpus from its raw files, shaped like the
+    engine's ``run_batched`` results."""
+    files = [np.asarray(f, np.int64) for f in files]
+    wc = np.bincount(np.concatenate(files) if files else np.zeros(0, int),
+                     minlength=vocab).astype(np.float32)
+    tv = np.stack([np.bincount(f, minlength=vocab) for f in files]
+                  ).astype(np.float32)
+    order = np.argsort(-wc, kind="stable")
+    rank = np.argsort(-tv, axis=0, kind="stable")
+    grams = [np.stack([f[i: len(f) - l + 1 + i] for i in range(l)], axis=1)
+             for f in files if len(f) >= l]
+    grams = np.concatenate(grams) if grams else np.zeros((0, l), np.int64)
+    uniq, counts = np.unique(grams, axis=0, return_counts=True)
+    return {
+        "word_count": wc,
+        "sort": (order.astype(np.int32), wc[order]),
+        "term_vector": tv,
+        "inverted_index": tv > 0,
+        "ranked_inverted_index": (rank.T.astype(np.int32),
+                                  np.take_along_axis(tv, rank, axis=0).T),
+        "sequence_count": (uniq.astype(np.int32), counts.astype(np.float32)),
+    }
+
+
+def assert_same(got, want, what: str) -> None:
+    if isinstance(want, tuple):
+        check(isinstance(got, tuple) and len(got) == len(want),
+              f"{what}: result has the wrong arity")
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_same(g, w, f"{what}[{i}]")
+        return
+    g = np.asarray(got)
+    check(g.shape == want.shape, f"{what}: shape {g.shape} != {want.shape}")
+    check(g.dtype == want.dtype, f"{what}: dtype {g.dtype} != {want.dtype}")
+    bad = np.argwhere(g != want)
+    check(len(bad) == 0, f"{what}: {len(bad)} entries differ from the "
+                         f"oracle, first at {bad[:1].tolist()}")
+
+
+# ----------------------------------------------------------------------- #
+# Phases                                                                   #
+# ----------------------------------------------------------------------- #
+def make_corpora(n: int, n_files: int, tokens_per_file: int, vocab: int):
+    from repro_torch.core import compress_files, flatten
+    from repro_torch.data.synthetic import CorpusSpec, make_corpus
+
+    corpora = []
+    for i in range(n):
+        spec = CorpusSpec(f"smoke{i}", n_files=n_files,
+                          tokens_per_file=tokens_per_file, vocab=vocab,
+                          phrase_rate=PHRASE_RATE, n_phrases=N_PHRASES,
+                          phrase_len=PHRASE_LEN, seed=SEED + i)
+        files = make_corpus(spec)
+        g, nf = compress_files(files, vocab)
+        corpora.append((files, flatten(g, vocab, nf)))
+    return corpora
+
+
+def plan_dims(gas):
+    """(R_pad, K) of a pack of ``gas`` without building it."""
+    from repro_torch.core.batch import _round_up_pow2
+    from repro_torch.core.grammar import pow2_bucket
+    return (_round_up_pow2(max(ga.num_rules for ga in gas)),
+            pow2_bucket(max(int(ga.in_deg.max(initial=0)) for ga in gas)))
+
+
+def fit_scalar_pack(corpora):
+    """The largest corpus prefix whose dense plan every explicit ELL
+    method admits."""
+    from repro_torch.core import resolve_traversal_method
+    for n in range(len(corpora), 0, -1):
+        gas = [ga for _, ga in corpora[:n]]
+        rows, k = plan_dims(gas)
+        edges = sum(ga.num_edges for ga in gas)
+        if all(resolve_traversal_method(m, n=n, rows=rows, k=k, edges=edges)
+               == m for m in ("frontier_ell", "leveled_ell",
+                              "frontier_fused")):
+            return n
+    raise SmokeFailure("no corpus count admits the ELL methods")
+
+
+def fit_vector_subset(corpora, vocab: int):
+    """A file subset of the first corpora whose per-file ELL rounds are
+    admitted (``ell_vector_plan_ok``); returns its corpora."""
+    from repro_torch.core import compress_files, flatten
+    from repro_torch.core import resolve_traversal_method
+    n = min(4, len(corpora))
+    f = max(1, len(corpora[0][0]) // 4)
+    while True:
+        sub = []
+        for files, _ in corpora[:n]:
+            g, nf = compress_files(files[:f], vocab)
+            sub.append((files[:f], flatten(g, vocab, nf)))
+        gas = [ga for _, ga in sub]
+        rows, k = plan_dims(gas)
+        edges = sum(ga.num_edges for ga in gas)
+        f_pad = max(1, 1 << (max(ga.num_files for ga in gas) - 1).bit_length())
+        if all(resolve_traversal_method(m, n=n, rows=rows, k=k, edges=edges,
+                                        per_file=True, f=f_pad) == m
+               for m in ("frontier_ell", "leveled_ell")):
+            return sub
+        if f == 1 and n == 1:
+            raise SmokeFailure("no file subset admits the per-file ELL "
+                               "rounds")
+        if f > 1:
+            f //= 2
+        else:
+            n //= 2
+
+
+def pack_bytes(gb) -> int:
+    import torch
+    return sum(v.numel() * v.element_size() for v in vars(gb).values()
+               if isinstance(v, torch.Tensor))
+
+
+def run_engine(gb, oracles, label: str) -> None:
+    """Every kind x method (+ kernel backend) through ``run_batched``,
+    each result checked against the oracle."""
+    from repro_torch.core import ANALYTICS_KINDS, METHODS, run_batched
+    from repro_torch.core.batch import resolve_batch_method
+
+    for m in METHODS:
+        log(f"[{label}] method {m}: scalar -> "
+            f"{resolve_batch_method(gb, m)}, per-file -> "
+            f"{resolve_batch_method(gb, m, per_file=True)}")
+    times = {}
+    runs = [(k, m, "torch") for k in ANALYTICS_KINDS for m in METHODS]
+    runs += [(k, m, "kernel") for k in ("word_count", "sort")
+             for m in METHODS]
+    for kind, method, backend in runs:
+        t0 = time.perf_counter()
+        res = run_batched(gb, kind, method, backend=backend, l=SEQ_L)
+        times[(kind, method, backend)] = (time.perf_counter() - t0) * 1e3
+        for i, r in enumerate(res):
+            assert_same(r, oracles[i][kind],
+                        f"[{label}] {kind}/{method}/{backend} corpus {i}")
+    slowest = sorted(times.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[{label}] {len(runs)} runs match the oracle; total "
+        f"{sum(times.values()):.1f} ms; slowest: "
+        + ", ".join(f"{k}/{m}/{b} {t:.1f} ms" for (k, m, b), t in slowest))
+
+
+def time_ms(fn, dev) -> float:
+    """Median milliseconds of ``fn()`` over TIMING_REPS runs after warm-up
+    (CUDA events on the card, the host clock otherwise)."""
+    import torch
+    cuda = dev.type == "cuda"
+    for _ in range(TIMING_WARMUP):
+        fn()
+    if cuda:
+        torch.cuda.synchronize(dev)
+    samples = []
+    for _ in range(TIMING_REPS):
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            samples.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(n_bytes: float, n_ops: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def plan_read_bytes(src, freq, active, row_bytes: int) -> int:
+    """Bytes one masked round must read: all of ``freq`` (it tells edges
+    from padding), ``src`` for the real edges only, ``active`` once per
+    distinct source, and a payload row of ``row_bytes`` once per distinct
+    active source."""
+    import torch
+    n, R = active.shape
+    nz = freq != 0
+    off = (torch.arange(n, device=src.device) * R)[:, None, None]
+    srcs = torch.unique((src.long() + off)[nz])
+    act = int((active.reshape(-1)[srcs] > 0).sum())
+    return (nbytes(freq) + 4 * int(nz.sum()) + 4 * srcs.numel()
+            + row_bytes * act)
+
+
+def max_abs_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def kernel_phase(gb, sub, dev):
+    """Each kernel at the main path's shapes against its plain version."""
+    import torch
+    from repro_torch.core import batch as tb
+    from repro_torch.kernels import ops, ref
+
+    out = []
+    src, freq, level, num_levels = gb.ell_plan()
+    w = tb.batched_top_down_weights(gb, "frontier")
+    n, R, K = src.shape
+
+    def record(name, cu, replaces, got, want, ms, plain_ms, b, lib_ms=None):
+        err = max(max_abs_err(g, p) for g, p in zip(got, want))
+        check(all(torch.equal(g, p) for g, p in zip(got, want)),
+              f"{name}: kernel differs from its plain version "
+              f"(max abs err {err})")
+        out.append({"name": name, "route": "cuda",
+                    "source": f"src/repro_torch/kernels/csrc/{cu}",
+                    "replaces": replaces, "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+                    "bound_by": b[1], "library_ms": lib_ms})
+        log(f"[kernel] {name}: exact; {ms:.5g} ms (plain {plain_ms:.5g} ms, "
+            f"bound {b[0]:.5g} ms by {b[1]}"
+            + (f", library {lib_ms:.5g} ms" if lib_ms is not None else "")
+            + ")")
+
+    # 1. one frontier round: the level-1 parents active, real weights
+    active = (level == 1).to(torch.float32)
+    args = (w, active, src, freq)
+    got = ops.ell_propagate_batched(*args)
+    want = ref.ell_propagate_batched_ref(*args)
+    edges = int((freq != 0).sum())
+    record("ell_propagate_batched", "propagate_batched.cu",
+           "src/repro/kernels/propagate_batched.py:96", got, want,
+           time_ms(lambda: ops.ell_propagate_batched(*args), dev),
+           time_ms(lambda: ref.ell_propagate_batched_ref(*args), dev),
+           bound(plan_read_bytes(src, freq, active, 4) + 2 * n * R * 4,
+                 4 * edges))
+    log(f"[kernel] ell_propagate_batched shape: N={n} R={R} K={K}")
+
+    # 2. the whole frontier loop
+    w0 = torch.zeros((n, R), dtype=torch.float32, device=dev)
+    w0[:, 0] = 1.0
+    ind = gb.in_deg.to(torch.float32)
+    fargs = (w0, ind, src, freq, num_levels)
+    got = ops.ell_frontier_fused(*fargs, with_rounds=True)
+    want = ref.ell_frontier_fused_ref(*fargs)
+    check(torch.equal(got[0], w), "fused weights differ from frontier")
+    rounds = int(got[1].max())
+    record("ell_frontier_fused", "propagate_fused.cu",
+           "src/repro/kernels/propagate_fused.py:145", got, want,
+           time_ms(lambda: ops.ell_frontier_fused(*fargs), dev),
+           time_ms(lambda: ref.ell_frontier_fused_ref(*fargs), dev),
+           # read once: w0, in_deg, freq and the real edges' src; every
+           # edge contributes once over the whole traversal
+           bound(nbytes(w0, ind, freq) + 4 * edges + n * R * 4 + n * 4,
+                 4 * edges))
+    log(f"[kernel] ell_frontier_fused: max_rounds={num_levels}, rounds per "
+        f"corpus {got[1].tolist()} (max {rounds})")
+
+    # 3. one vector round on the subset pack: level-1 non-root parents,
+    #    real per-file weights
+    vsrc, vfreq, vlevel, _ = sub.ell_plan()
+    W = tb.batched_per_file_weights(sub, "frontier")
+    vn, vR, vK = vsrc.shape
+    F = W.shape[2]
+    nonroot = (torch.arange(vR, device=dev) > 0)[None, :]
+    vactive = ((vlevel == 1) & nonroot).to(torch.float32)
+    vargs = (W, vactive, vsrc, vfreq)
+    got = ops.ell_propagate_vector(*vargs)
+    want = ref.ell_propagate_vector_ref(*vargs)
+    vedges = int((vfreq != 0).sum())
+    record("ell_propagate_vector", "propagate_vector.cu",
+           "src/repro/kernels/propagate_vector.py:111", got, want,
+           time_ms(lambda: ops.ell_propagate_vector(*vargs), dev),
+           time_ms(lambda: ref.ell_propagate_vector_ref(*vargs), dev),
+           bound(plan_read_bytes(vsrc, vfreq, vactive, 4 * F)
+                 + vn * vR * (F + 1) * 4, 3 * vedges * F))
+    log(f"[kernel] ell_propagate_vector subset shape: N={vn} R={vR} K={vK} "
+        f"F={F}")
+
+    # 4. the word-count histogram over the flat-offset batch
+    vals = gb.tw_cnt * torch.gather(w, 1, gb.tw_rule)
+    nbins = n * gb.V_pad
+    valid = (gb.tw_word >= 0) & (gb.tw_word < gb.V_pad)
+    offs = (torch.arange(n, device=dev) * gb.V_pad)[:, None]
+    ids = torch.where(valid, gb.tw_word + offs, -1).reshape(-1).to(
+        torch.int32)
+    flat_vals = vals.reshape(-1).contiguous()
+    got = ops.weighted_bincount(ids, flat_vals, nbins)
+    want = ref.weighted_bincount_ref(ids, flat_vals, nbins)
+    keep = ids >= 0
+    lib_ids, lib_vals = ids[keep].long(), flat_vals[keep]
+    lib = torch.bincount(lib_ids, weights=lib_vals, minlength=nbins)
+    check(torch.equal(lib.to(torch.float32), want),
+          "torch.bincount yardstick disagrees")
+    record("weighted_bincount", "bincount.cu",
+           "src/repro/kernels/bincount.py:78", (got,), (want,),
+           time_ms(lambda: ops.weighted_bincount(ids, flat_vals, nbins), dev),
+           time_ms(lambda: ref.weighted_bincount_ref(ids, flat_vals, nbins),
+                   dev),
+           bound(nbytes(ids, flat_vals) + nbins * 4, ids.numel()),
+           time_ms(lambda: torch.bincount(lib_ids, weights=lib_vals,
+                                          minlength=nbins), dev))
+    log(f"[kernel] weighted_bincount shape: n={ids.numel()} nbins={nbins}")
+    return out
+
+
+def run(dev, n_corpora=N_CORPORA, n_files=N_FILES,
+        tokens_per_file=TOKENS_PER_FILE, vocab=VOCAB):
+    """Phases 2-4 on ``dev``; returns the kernels' JSON records."""
+    from repro_torch.core import GrammarBatch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    corpora = make_corpora(n_corpora, n_files, tokens_per_file, vocab)
+    log(f"[data] {n_corpora} corpora x {n_files} files x {tokens_per_file} "
+        f"tokens (vocab {vocab}) compressed in "
+        f"{time.perf_counter() - t0:.1f} s; rules per corpus "
+        f"{[ga.num_rules for _, ga in corpora]}")
+    n = fit_scalar_pack(corpora)
+    log(f"[data] corpus count used: {n} of {n_corpora}")
+    corpora = corpora[:n]
+    gb = GrammarBatch.build([ga for _, ga in corpora], device=dev)
+    src, freq, level, num_levels = gb.ell_plan()
+    log(f"[data] pack: N={gb.n} R_pad={gb.R_pad} E_pad={gb.E_pad} "
+        f"K={gb.ell_plan_width()} F_pad={gb.F_pad} V_pad={gb.V_pad} "
+        f"levels={num_levels}; pack {pack_bytes(gb)} B, ELL plan "
+        f"{nbytes(src, freq, level)} B on {dev}")
+    sub_corpora = fit_vector_subset(corpora, vocab)
+    sub = GrammarBatch.build([ga for _, ga in sub_corpora], device=dev)
+    log(f"[data] per-file subset: N={sub.n} files={len(sub_corpora[0][0])} "
+        f"R_pad={sub.R_pad} K={sub.ell_plan_width()} F_pad={sub.F_pad}")
+    t0 = time.perf_counter()
+    oracles = [oracle(files, vocab) for files, _ in corpora]
+    sub_oracles = [oracle(files, vocab) for files, _ in sub_corpora]
+    log(f"[data] oracle built in {time.perf_counter() - t0:.1f} s")
+
+    # the main path: counts zeroed just before, read just after
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    run_engine(gb, oracles, "pack")
+    run_engine(sub, sub_oracles, "subset")
+    counts = launch_counts()
+    log(f"[engine] main path done in {time.perf_counter() - t0:.1f} s; "
+        f"launches {counts}")
+
+    records = kernel_phase(gb, sub, dev)
+    for r in records:
+        r["launches"] = counts.get(r["name"], 0)
+    return records
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    src = os.path.join(REPO, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, src)
+    from repro_torch.kernels import _common
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    dev = _common.resolve_device(None)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+        f"{torch.cuda.get_device_name(dev)}")
+    t0 = time.perf_counter()
+    lib = _common.build_library(verbose=True)
+    log(f"[build] {lib.name} built in {time.perf_counter() - t0:.1f} s")
+
+    records = run(dev)
+    missing = [r["name"] for r in records if r["launches"] <= 0]
+    if missing:
+        print(f"chip_smoke: FAILED: the main path never launched {missing}",
+              file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": records}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,207 @@
+"""The port's kernel modules against the JAX package, on the CPU.
+
+For each of the four kernels on the packed engine's path, numpy-seeded
+inputs go through the port's plain torch version (the path every CPU tensor
+takes) and through the JAX package twice: its jnp reference
+(``repro.kernels.ref``) and its Pallas kernel in interpret mode.  Integer-
+valued inputs — every value on the engine path — must match exactly;
+arbitrary floats are summed in another order, so they get rtol=atol=1e-6.
+The CUDA kernels themselves run only on the card (tests/test_torch_gpu.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.bincount import weighted_bincount_pallas
+from repro.kernels.propagate_batched import ell_propagate_batched_pallas
+from repro.kernels.propagate_fused import ell_frontier_fused_pallas
+from repro.kernels.propagate_vector import ell_propagate_vector_pallas
+from repro_torch.kernels import _common, ops, ref
+
+from _torch_inputs import (batch_dags, bincount_inputs, plan_inputs,
+                           vector_inputs)
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+def _check(got, want, integer: bool):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if integer:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, **TOL)
+
+
+# ------------------------------------------------------------ bincount --
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("n,nbins", [(700, 300), (64, 8), (1500, 1030)])
+def test_bincount_matches_jax(n, nbins, integer, seeded_rng):
+    ids, vals = bincount_inputs(seeded_rng, n, nbins, integer)
+    got = ref.weighted_bincount_ref(*_t(ids, vals), nbins)
+    _check(got, jref.weighted_bincount_ref(*_j(ids, vals), nbins), integer)
+    _check(got, weighted_bincount_pallas(*_j(ids, vals), nbins,
+                                         interpret=True), integer)
+    _check(ops.weighted_bincount(*_t(ids, vals), nbins),
+           jops.weighted_bincount(*_j(ids, vals), nbins), integer)
+
+
+@pytest.mark.parametrize("n,t,nbins", [(3, 50, 40), (5, 200, 1 << 20)])
+def test_bincount_batched_matches_jax(n, t, nbins, seeded_rng):
+    """Flat-offset batching, including the row-chunked crossover above
+    BINCOUNT_BATCH_FLAT_LIMIT (5 rows x 2^20 bins)."""
+    ids = seeded_rng.integers(-1, min(nbins, 500), (n, t)).astype(np.int32)
+    vals = seeded_rng.integers(0, 9, (n, t)).astype(np.float32)
+    got = ops.weighted_bincount_batched(*_t(ids, vals), nbins)
+    _check(got, jops.weighted_bincount_batched(*_j(ids, vals), nbins), True)
+
+
+def test_bincount_empty_and_bad_shapes():
+    z = ops.weighted_bincount(torch.zeros(0, dtype=torch.int32),
+                              torch.zeros(0), 5)
+    assert z.shape == (5,) and not z.any()
+    zb = ops.weighted_bincount_batched(torch.zeros((3, 0), dtype=torch.int32),
+                                       torch.zeros((3, 0)), 4)
+    assert zb.shape == (3, 4)
+    with pytest.raises(ValueError):
+        ops.weighted_bincount_batched(torch.zeros((2, 3), dtype=torch.int32),
+                                      torch.zeros((2, 4)), 4)
+
+
+# ---------------------------------------------------- propagate_batched --
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("n,rows,k,R", [(1, 64, 1, 10), (3, 100, 4, 50),
+                                        (2, 300, 16, 333)])
+def test_propagate_batched_matches_jax(n, rows, k, R, integer, seeded_rng):
+    inputs = plan_inputs(seeded_rng, n, rows, k, R, integer)
+    d, s = ref.ell_propagate_batched_ref(*_t(*inputs))
+    jd, js = jref.ell_propagate_batched_ref(*_j(*inputs))
+    pd, ps = ell_propagate_batched_pallas(*_j(*inputs), br=64,
+                                          interpret=True)
+    for want_d, want_s in ((jd, js), (pd, ps)):
+        _check(d, want_d, integer)
+        _check(s, want_s, True)             # seen counts 0/1 masks: exact
+    od, os_ = ops.ell_propagate_batched(*_t(*inputs))
+    _check(od, d, True)
+    _check(os_, s, True)
+
+
+def test_propagate_batched_validation_and_empty():
+    with pytest.raises(ValueError):
+        ops.ell_propagate_batched(torch.zeros((2, 3)), torch.zeros((2, 3)),
+                                  torch.zeros((2, 3, 1), dtype=torch.int32),
+                                  torch.zeros((2, 3, 2)))
+    d, s = ops.ell_propagate_batched(torch.zeros((2, 3)), torch.zeros((2, 3)),
+                                     torch.zeros((2, 0, 4), dtype=torch.int32),
+                                     torch.zeros((2, 0, 4)))
+    assert d.shape == (2, 0) and s.shape == (2, 0)
+
+
+# ----------------------------------------------------- propagate_vector --
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("R,k,F,n", [(64, 3, 4, 1), (130, 5, 17, 2),
+                                     (300, 2, 129, 1)])
+def test_propagate_vector_matches_jax(R, k, F, n, integer, seeded_rng):
+    inputs = vector_inputs(seeded_rng, n, R, k, F, integer)
+    d, s = ref.ell_propagate_vector_ref(*_t(*inputs))
+    jd, js = jref.ell_propagate_vector_ref(*_j(*inputs))
+    pd, ps = ell_propagate_vector_pallas(*_j(*inputs), interpret=True)
+    for want_d, want_s in ((jd, js), (pd, ps)):
+        _check(d, want_d, integer)
+        _check(s, want_s, True)
+    od, os_ = ops.ell_propagate_vector(*_t(*inputs))
+    _check(od, d, True)
+    _check(os_, s, True)
+
+
+def test_propagate_vector_validation_and_empty():
+    with pytest.raises(ValueError):
+        ops.ell_propagate_vector(torch.zeros((2, 3)), torch.zeros((2, 3)),
+                                 torch.zeros((2, 3, 1), dtype=torch.int32),
+                                 torch.zeros((2, 3, 1)))
+    d, s = ops.ell_propagate_vector(torch.zeros((2, 3, 5)),
+                                    torch.zeros((2, 3)),
+                                    torch.zeros((2, 0, 4), dtype=torch.int32),
+                                    torch.zeros((2, 0, 4)))
+    assert d.shape == (2, 0, 5) and s.shape == (2, 0)
+
+
+# ------------------------------------------------------ propagate_fused --
+@pytest.mark.parametrize("R,max_deg,n", [(40, 3, 1), (130, 5, 3),
+                                         (257, 2, 4)])
+def test_frontier_fused_matches_jax(R, max_deg, n, seeded_rng):
+    """Weights AND round counts equal the JAX reference, the interpret-mode
+    Pallas kernel, and the exact DAG replay; extra rounds are no-ops."""
+    w0, ind, src, freq, want, depth = batch_dags(seeded_rng, R, max_deg, n)
+    rounds_bound = depth + 1
+    w, rounds = ref.ell_frontier_fused_ref(*_t(w0, ind, src, freq),
+                                           rounds_bound)
+    np.testing.assert_array_equal(w.numpy(), want)
+    jw, jr = jref.ell_frontier_fused_ref(*_j(w0, ind, src, freq),
+                                         rounds_bound, with_rounds=True)
+    pw, pr = ell_frontier_fused_pallas(*_j(w0, ind, src, freq),
+                                       rounds_bound, br=64, interpret=True)
+    for want_w, want_r in ((jw, jr), (pw, pr)):
+        _check(w, want_w, True)
+        _check(rounds, want_r, True)
+    ew, er = ops.ell_frontier_fused(*_t(w0, ind, src, freq),
+                                    rounds_bound + 3, with_rounds=True)
+    _check(ew, w, True)
+    _check(er, rounds, True)
+
+
+def test_frontier_fused_empty_plan():
+    w0 = torch.ones((2, 3))
+    w, r = ops.ell_frontier_fused(w0, torch.zeros((2, 3)),
+                                  torch.zeros((2, 3, 0), dtype=torch.int32),
+                                  torch.zeros((2, 3, 0)), 4, with_rounds=True)
+    assert torch.equal(w, w0) and r.tolist() == [0, 0]
+
+
+# ------------------------------------------------------------- routing --
+def test_constants_match_jax():
+    for name in ("BINCOUNT_BATCH_FLAT_LIMIT", "ELL_BATCH_MIN_ROWS",
+                 "ELL_BATCH_MAX_WIDTH", "ELL_BATCH_MIN_FILL",
+                 "ELL_PLAN_MAX_ENTRIES", "ELL_FUSED_MAX_RULES"):
+        assert getattr(ops, name) == getattr(jops, name), name
+
+
+@pytest.mark.parametrize("n", [1, 4, 16])
+@pytest.mark.parametrize("rows", [8, 64, 1 << 13, 1 << 19])
+@pytest.mark.parametrize("k", [1, 64, 4096])
+def test_predicates_match_jax(n, rows, k):
+    """Every routing predicate resolves as in the JAX package (no tuned
+    table there either: the test session points it at a missing file)."""
+    for edges in (0, rows, n * rows * k // 200, n * rows * k):
+        assert (ops.ell_batched_use_ref(edges, n, rows, k)
+                == jops.ell_batched_use_ref(edges, n, rows, k))
+    assert ops.ell_fused_use_kernel(rows) == jops.ell_fused_use_kernel(rows)
+    for f in (1, 64):
+        assert (ops.ell_vector_plan_ok(n, rows, k, f)
+                == jops.ell_vector_plan_ok(n, rows, k, f))
+    assert (ops.bincount_batch_rows(n, rows * k)
+            == jops.bincount_batch_rows(n, rows * k))
+
+
+def test_cpu_tensors_take_the_plain_path(seeded_rng):
+    """A CPU tensor never reaches a kernel: launch counts stay put."""
+    before = _common.launch_counts()
+    inputs = plan_inputs(seeded_rng, 2, 70, 4, 30)
+    ops.ell_propagate_batched(*_t(*inputs))
+    ops.ell_propagate_vector(*_t(*vector_inputs(seeded_rng, 2, 30, 2, 3)))
+    ops.weighted_bincount(*_t(*bincount_inputs(seeded_rng, 100, 20)), 20)
+    assert _common.launch_counts() == before
