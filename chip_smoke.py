@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's packed analytics engine once on one NVIDIA H100.
+"""Drive the PyTorch port's analytics engines once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -7,7 +7,7 @@ run from the root of a checkout, on a machine with one Hopper card and the
 CUDA toolkit.  Phases:
 
 1. Set-up: print the card's name and power limit (nvidia-smi), build the
-   four CUDA kernels from ``src/repro_torch/kernels/csrc`` and print the
+   five CUDA kernels from ``src/repro_torch/kernels/csrc`` and print the
    build seconds.
 2. Data: 16 synthetic corpora (64 files x 4000 tokens, vocab 20,000,
    Zipfian words with 60% repeated phrases) from a fixed seed, compressed
@@ -18,11 +18,22 @@ CUDA toolkit.  Phases:
    explicit ELL method resolves to itself.  A second, smaller pack (a file
    subset) is sized so the per-file ELL rounds are admitted
    (``ell_vector_plan_ok``); at the full pack they degrade to segment_sum.
-3. Engine (the main path): ``run_batched`` for all six analytics under all
-   six traversal methods, word count and sort also under the kernel
-   backend, on both packs — every result checked exactly against a numpy
-   decompress-then-scan oracle built from the raw token files.  Launch
-   counts are zeroed just before and read just after.
+3. Engine (the main path), with launch counts zeroed just before and read
+   just after:
+   a. ``run_batched`` for all six analytics under all six traversal
+      methods, word count and sort also under the kernel backend, on both
+      packs;
+   b. the single-corpus engine on one more corpus (256 files x 4000
+      tokens, another seed) built through ``CompressedCorpus.build``: the
+      six analytics under every single-corpus method and ``auto`` (word
+      count and sort under both backends), ``bottom_up_tables`` (checked
+      against the word count, with its peak device memory),
+      ``bottom_up_bounds`` and the memory plans, the ELL row sums of the
+      in-edge plan as the flow check of the top-down weights (row r's sum
+      is rule r's weight for r >= 1, 0 for the root), append == rebuild
+      with the memoized weights recomputed, window reads, save/load.
+   Every analytic is checked exactly against a numpy decompress-then-scan
+   oracle built from the raw token files.
 4. Kernels: each kernel at the main path's shapes against its plain torch
    version on the same card inputs (exact equality: all values are
    integer-valued float32 below 2^24), timed with CUDA events (median of
@@ -58,6 +69,11 @@ N_PHRASES = 200
 PHRASE_LEN = 10
 SEED = 0
 SEQ_L = 3
+# the single corpus (phase 3b): a corpus that is not in the pack
+SINGLE_FILES = 256
+SINGLE_SEED = SEED + 16
+# files of the single corpus built first; the rest are appended
+INGEST_SHARE = 0.75
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -126,17 +142,22 @@ def assert_same(got, want, what: str) -> None:
 # ----------------------------------------------------------------------- #
 # Phases                                                                   #
 # ----------------------------------------------------------------------- #
+def corpus_files(name: str, n_files: int, tokens_per_file: int, vocab: int,
+                 seed: int):
+    from repro_torch.data.synthetic import CorpusSpec, make_corpus
+    return make_corpus(CorpusSpec(
+        name, n_files=n_files, tokens_per_file=tokens_per_file, vocab=vocab,
+        phrase_rate=PHRASE_RATE, n_phrases=N_PHRASES, phrase_len=PHRASE_LEN,
+        seed=seed))
+
+
 def make_corpora(n: int, n_files: int, tokens_per_file: int, vocab: int):
     from repro_torch.core import compress_files, flatten
-    from repro_torch.data.synthetic import CorpusSpec, make_corpus
 
     corpora = []
     for i in range(n):
-        spec = CorpusSpec(f"smoke{i}", n_files=n_files,
-                          tokens_per_file=tokens_per_file, vocab=vocab,
-                          phrase_rate=PHRASE_RATE, n_phrases=N_PHRASES,
-                          phrase_len=PHRASE_LEN, seed=SEED + i)
-        files = make_corpus(spec)
+        files = corpus_files(f"smoke{i}", n_files, tokens_per_file, vocab,
+                             SEED + i)
         g, nf = compress_files(files, vocab)
         corpora.append((files, flatten(g, vocab, nf)))
     return corpora
@@ -227,6 +248,151 @@ def run_engine(gb, oracles, label: str) -> None:
         + ", ".join(f"{k}/{m}/{b} {t:.1f} ms" for (k, m, b), t in slowest))
 
 
+def to_host(r):
+    """An engine result as numpy (tensors copied off the device)."""
+    if isinstance(r, tuple):
+        return tuple(to_host(x) for x in r)
+    return r.cpu().numpy() if hasattr(r, "cpu") else r
+
+
+def assert_corpus_equal(got, want, what: str) -> None:
+    import dataclasses
+    for f in dataclasses.fields(want.ga):
+        assert_same(getattr(got.ga, f.name), np.asarray(
+            getattr(want.ga, f.name)), f"{what}: field {f.name}")
+    assert_same(got.file_starts, want.file_starts, f"{what}: file_starts")
+    assert_same(got.file_lens, want.file_lens, f"{what}: file_lens")
+
+
+def single_phase(files, vocab: int, dev):
+    """The single-corpus engine and the store on one corpus (phase 3b);
+    returns ``(ga, weights)`` for the kernel phase."""
+    import tempfile
+    import torch
+    import repro_torch.core as tc
+    from repro_torch.core.traversal import TOP_DOWN_METHODS
+    from repro_torch.data import CompressedCorpus
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    cc = CompressedCorpus.build(files, vocab)
+    ga = cc.ga
+    K = tc.pow2_bucket(int(ga.in_deg.max(initial=0)))
+    log(f"[single] {len(files)} files x {len(files[0])} tokens (vocab "
+        f"{vocab}) compressed in {time.perf_counter() - t0:.1f} s: "
+        f"{ga.num_rules} rules, {ga.num_edges} edges, {len(ga.tw_rule)} "
+        f"word-table entries, max in-degree {int(ga.in_deg.max())} (K={K}), "
+        f"{ga.num_levels} levels")
+    want = oracle(files, vocab)
+    methods = TOP_DOWN_METHODS + ("auto",)
+    for m in methods:
+        r = m if m != "auto" else tc.selector.select_traversal(ga)
+        log(f"[single] method {m}: scalar -> "
+            f"{tc.resolve_single_method(ga, r)}, per-file -> "
+            f"{tc.resolve_single_method(ga, r, per_file=True)}")
+    apps = {"word_count": tc.word_count, "sort": tc.sort_words,
+            "term_vector": tc.term_vector,
+            "inverted_index": tc.inverted_index,
+            "ranked_inverted_index": tc.ranked_inverted_index,
+            "sequence_count": tc.sequence_count}
+    runs = [(k, m, "torch") for k in apps for m in methods]
+    runs += [(k, m, "kernel") for k in ("word_count", "sort")
+             for m in methods]
+    total = 0.0
+    for kind, method, backend in runs:
+        kw = {"backend": backend} if kind in ("word_count", "sort") else {}
+        t0 = time.perf_counter()
+        res = to_host(apps[kind](ga, method=method, device=dev, **kw))
+        ms = (time.perf_counter() - t0) * 1e3
+        total += ms
+        assert_same(res, want[kind], f"[single] {kind}/{method}/{backend}")
+        log(f"[single] {kind}/{method}/{backend}: {ms:.1f} ms, exact")
+    log(f"[single] {len(runs)} runs match the oracle; total {total:.1f} ms")
+
+    # flow check of the top-down weights through the row-sum kernel
+    w = tc.top_down_weights(ga, "frontier", device=dev)
+    src, freq = (torch.as_tensor(a, device=dev)
+                 for a in ga.in_edges_ell_dense())
+    flow = ops.ell_row_sums(w, src, freq)
+    check(float(flow[0]) == 0.0 and torch.equal(flow[1:], w[1:]),
+          "[single] ell_row_sums of the in-edge plan != the weights")
+    log(f"[single] flow check: row sums of the [{src.shape[0]}, "
+        f"{src.shape[1]}] in-edge plan == weights on every rule >= 1")
+
+    # bottom-up tables, bounds, arenas
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        resident = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    C, result = tc.bottom_up_tables(ga, device=dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    assert_same(result.cpu().numpy(), want["word_count"],
+                "[single] bottom_up_tables result")
+    table_sizes = (C > 0).sum(dim=1).cpu().numpy()
+    del C
+    if cuda:
+        top = torch.cuda.max_memory_allocated(dev)
+        peak = (f"{top - resident} B of its own ({top} B peak over "
+                f"{resident} B resident before the call)")
+    else:
+        peak = "not measured (CPU)"
+    log(f"[single] bottom_up_tables: [{ga.num_rules}, {vocab}] in "
+        f"{ms:.1f} ms, == word_count; device memory {peak}")
+    bounds = tc.bottom_up_bounds(ga, device=dev).cpu().numpy()
+    check(bool((bounds >= table_sizes).all()),
+          "[single] bottom_up_bounds below a local table size")
+    tables = tc.plan_local_tables(ga, device=dev)
+    streams = tc.plan_streams(ga, SEQ_L)
+    check(tables.total == int(np.minimum(bounds, vocab).sum()),
+          "[single] plan_local_tables total")
+    check(streams.total >= len(tc.sequence.plan_stream(ga, SEQ_L).st_kind),
+          "[single] plan_streams below the stream length")
+    log(f"[single] bounds dominate the tables; arenas: tables "
+        f"{tables.total}, streams {streams.total} entries")
+
+    # ingest: build a prefix, append the rest == build everything
+    cut = max(1, int(len(files) * INGEST_SHARE))
+    t0 = time.perf_counter()
+    grown = CompressedCorpus.build(files[:cut], vocab)
+    before = grown.top_down_weights(device=dev)
+    grown.append_files(files[cut:])
+    check(grown.epoch == 1, "[single] append did not bump the epoch")
+    assert_corpus_equal(grown, cc, "[single] append != rebuild")
+    after = grown.top_down_weights(device=dev)
+    check(after is not before and torch.equal(after, w),
+          "[single] memoized weights not recomputed after the append")
+    log(f"[single] ingest: build({cut}) + append({len(files) - cut}) == "
+        f"build({len(files)}), epoch 1, weights recomputed "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # window reads
+    rng = np.random.default_rng(SINGLE_SEED)
+    for fid in rng.integers(0, len(files), 4):
+        f = files[int(fid)]
+        off = int(rng.integers(0, len(f)))
+        assert_same(cc.window(int(fid), off, 100),
+                    np.asarray(f[off: off + 100], np.int64),
+                    f"[single] window({int(fid)}, {off})")
+    stream = np.concatenate([np.append(np.asarray(f, np.int64), vocab + i)
+                             for i, f in enumerate(files)])
+    for off in (0, int(rng.integers(0, len(stream))), len(stream) - 10):
+        assert_same(cc.global_window(off, 64), stream[off: off + 64],
+                    f"[single] global_window({off})")
+    log("[single] window and global_window reads == the raw files")
+
+    # save / load
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "corpus.npz")
+        grown.save(path)
+        loaded = CompressedCorpus.load(path)
+    check(loaded.epoch == 1, "[single] load lost the epoch")
+    assert_corpus_equal(loaded, grown, "[single] save/load")
+    log("[single] save/load round-trips every field and the epoch")
+    return ga, w
+
+
 def time_ms(fn, dev) -> float:
     """Median milliseconds of ``fn()`` over TIMING_REPS runs after warm-up
     (CUDA events on the card, the host clock otherwise)."""
@@ -282,7 +448,7 @@ def max_abs_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def kernel_phase(gb, sub, dev):
+def kernel_phase(gb, sub, single, dev):
     """Each kernel at the main path's shapes against its plain version."""
     import torch
     from repro_torch.core import batch as tb
@@ -387,11 +553,41 @@ def kernel_phase(gb, sub, dev):
            time_ms(lambda: torch.bincount(lib_ids, weights=lib_vals,
                                           minlength=nbins), dev))
     log(f"[kernel] weighted_bincount shape: n={ids.numel()} nbins={nbins}")
+
+    # 5. the row sums of the single corpus's in-edge plan
+    ga, sw = single
+    rsrc, rfreq = (torch.as_tensor(a, device=dev)
+                   for a in ga.in_edges_ell_dense())
+    rargs = (sw, rsrc, rfreq)
+    got = ops.ell_row_sums(*rargs)
+    want = ref.ell_row_sums_ref(*rargs)
+    nz = rfreq != 0
+    redges = int(nz.sum())
+    rsrcs = int(torch.unique(rsrc[nz]).numel())
+    # the library's yardstick: a weighted-sum embedding bag per row
+    table = sw[:, None]
+
+    def bag():
+        return torch.nn.functional.embedding_bag(
+            rsrc, table, per_sample_weights=rfreq, mode="sum")[:, 0]
+    check(torch.equal(bag(), want), "embedding_bag yardstick disagrees")
+    record("ell_row_sums", "row_sums.cu",
+           "src/repro/kernels/propagate.py:84", (got,), (want,),
+           time_ms(lambda: ops.ell_row_sums(*rargs), dev),
+           time_ms(lambda: ref.ell_row_sums_ref(*rargs), dev),
+           # all of freq, src of the real edges, each gathered weight once,
+           # the output once; one multiply-add per real edge
+           bound(nbytes(rfreq) + 4 * redges + 4 * rsrcs + 4 * rsrc.shape[0],
+                 2 * redges),
+           time_ms(bag, dev))
+    log(f"[kernel] ell_row_sums shape: rows={rsrc.shape[0]} "
+        f"W={rsrc.shape[1]} edges={redges}")
     return out
 
 
 def run(dev, n_corpora=N_CORPORA, n_files=N_FILES,
-        tokens_per_file=TOKENS_PER_FILE, vocab=VOCAB):
+        tokens_per_file=TOKENS_PER_FILE, vocab=VOCAB,
+        single_files=SINGLE_FILES):
     """Phases 2-4 on ``dev``; returns the kernels' JSON records."""
     from repro_torch.core import GrammarBatch
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -415,6 +611,8 @@ def run(dev, n_corpora=N_CORPORA, n_files=N_FILES,
     sub = GrammarBatch.build([ga for _, ga in sub_corpora], device=dev)
     log(f"[data] per-file subset: N={sub.n} files={len(sub_corpora[0][0])} "
         f"R_pad={sub.R_pad} K={sub.ell_plan_width()} F_pad={sub.F_pad}")
+    sfiles = corpus_files("single", single_files, tokens_per_file, vocab,
+                          SINGLE_SEED)
     t0 = time.perf_counter()
     oracles = [oracle(files, vocab) for files, _ in corpora]
     sub_oracles = [oracle(files, vocab) for files, _ in sub_corpora]
@@ -425,11 +623,12 @@ def run(dev, n_corpora=N_CORPORA, n_files=N_FILES,
     t0 = time.perf_counter()
     run_engine(gb, oracles, "pack")
     run_engine(sub, sub_oracles, "subset")
+    single = single_phase(sfiles, vocab, dev)
     counts = launch_counts()
     log(f"[engine] main path done in {time.perf_counter() - t0:.1f} s; "
         f"launches {counts}")
 
-    records = kernel_phase(gb, sub, dev)
+    records = kernel_phase(gb, sub, single, dev)
     for r in records:
         r["launches"] = counts.get(r["name"], 0)
     return records

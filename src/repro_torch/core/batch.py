@@ -317,14 +317,17 @@ def _root_weights(n: int, R: int, device) -> torch.Tensor:
 # ----------------------------------------------------------------------- #
 # Batched traversals                                                       #
 # ----------------------------------------------------------------------- #
-def _frontier_weights(ep, ec, ef, valid, in_deg) -> torch.Tensor:
+def _frontier_weights(ep, ec, ef, valid, in_deg) -> Tuple[torch.Tensor,
+                                                          int]:
     """Masked frontier rounds over the COO edges until no corpus has an
-    active rule; corpora that finish early run no-op rounds."""
+    active rule; corpora that finish early run no-op rounds.  Returns
+    ``(weights, rounds)``."""
     N, R = in_deg.shape
     weight = _root_weights(N, R, in_deg.device)
     cur_in = torch.zeros_like(in_deg)
     mask = in_deg == 0
     ever = mask.clone()
+    rounds = 0
     while bool(mask.any()):
         active_e = torch.gather(mask, 1, ep) & valid
         contrib = torch.where(active_e, ef * torch.gather(weight, 1, ep),
@@ -333,7 +336,8 @@ def _frontier_weights(ep, ec, ef, valid, in_deg) -> torch.Tensor:
         cur_in = cur_in + _segment_sum(active_e.to(torch.int32), ec, R)
         mask = (cur_in == in_deg) & ~ever
         ever = ever | mask
-    return weight
+        rounds += 1
+    return weight, rounds
 
 
 def _leveled_weights(ep, ec, ef, slices, R: int) -> torch.Tensor:
@@ -461,7 +465,7 @@ def batched_top_down_weights(gb: GrammarBatch,
     method = resolve_batch_method(gb, method)
     if method in ("frontier", "top_down", "bottom_up"):
         return _frontier_weights(gb.edge_parent, gb.edge_child, gb.edge_freq,
-                                 gb.edge_valid, gb.in_deg)
+                                 gb.edge_valid, gb.in_deg)[0]
     if method == "leveled":
         return _leveled_weights(gb.lv_parent, gb.lv_child, gb.lv_freq,
                                 gb.lv_slices, gb.R_pad)

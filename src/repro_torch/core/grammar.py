@@ -36,7 +36,7 @@ class StaleGrammarError(RuntimeError):
     """A derived artifact (memoized weights, a pack, a plan) was produced
     at an earlier corpus epoch than the grammar it is about to serve — the
     ingest tier's guard against serving a mutated corpus from stale caches
-    (raised by the epoch checks that come with the port's ingest slice)."""
+    (raised by ``data.store.CompressedCorpus.check_epoch``)."""
 
 
 def pow2_bucket(x: int) -> int:
@@ -169,6 +169,12 @@ class GrammarArrays:
             slices.append((s, e))
         return slices, order
 
+    def compression_ratio(self) -> float:
+        """Terminals in the corpus stream per grammar body symbol."""
+        total_terminals = float(self.exp_len[0])
+        grammar_syms = float(self.body.shape[0])
+        return total_terminals / max(grammar_syms, 1.0)
+
 
 def flatten(g: Grammar, vocab_size: int, num_files: int) -> GrammarArrays:
     """Lay out an inferred grammar as flat arrays (one-time, host side)."""
@@ -299,3 +305,38 @@ def flatten(g: Grammar, vocab_size: int, num_files: int) -> GrammarArrays:
         fword_cnt=np.array(fw_c, np.int32),
         exp_len=exp_len, level=level, num_levels=num_levels,
     )
+
+
+# --------------------------------------------------------- random access --
+def expand_range(ga: GrammarArrays, start: int, length: int) -> np.ndarray:
+    """Expand ``length`` terminals starting at global offset ``start``
+    without decompressing anything outside the window (paper [3]'s random
+    access, host side — the store's ``window`` reads use it).
+    """
+    out = np.empty(length, np.int64)
+    n_out = 0
+    # iterative descent: stack of (rule, body_idx, remaining-skip)
+    skip = int(start)
+    stack: List[Tuple[int, int]] = [(0, 0)]
+    while stack and n_out < length:
+        r, i = stack.pop()
+        b = ga.rule_body(r)
+        while i < len(b) and n_out < length:
+            s = int(b[i])
+            i += 1
+            if s < ga.num_terminals:
+                if skip > 0:
+                    skip -= 1
+                else:
+                    out[n_out] = s
+                    n_out += 1
+            else:
+                sub = s - ga.num_terminals
+                l = int(ga.exp_len[sub])
+                if skip >= l:
+                    skip -= l
+                else:
+                    stack.append((r, i))
+                    stack.append((sub, 0))
+                    break
+    return out[:n_out]

@@ -6,19 +6,23 @@ and last ``l-1`` tokens), resolved in masked rounds, and every window that
 crosses a junction between adjacent body symbols is counted by the rule
 that owns the junction, scaled by the rule's top-down weight.
 
-This module holds the part the packed engine (core/batch.py) needs: the
-static gather layouts, computed once per grammar on the host with numpy —
-``plan_head_tail`` (how each head/tail slot is filled) and ``plan_stream``
-(the junction stream and its window index) — copied line for line so both
-packages plan identically.  The device phases live in core/batch.py.
+The static gather layouts are computed once per grammar on the host with
+numpy — ``plan_head_tail`` (how each head/tail slot is filled) and
+``plan_stream`` (the junction stream and its window index) — copied line
+for line so both packages plan identically.  The device phases of one
+corpus (``resolve_head_tail``, ``sequence_count``) run the packed engine's
+batched phases (core/batch.py) at N=1.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.kernels._common import resolve_device
 
 from .grammar import GrammarArrays
 
@@ -214,3 +218,77 @@ def plan_stream(ga: GrammarArrays, l: int) -> StreamPlan:
         win_start=np.array(win_start, np.int32),
         win_rule=np.array(win_rule, np.int32),
     )
+
+
+# ----------------------------------------------------------------------- #
+# Device phase 1: resolve head/tail (paper Fig. 7, masked rounds)          #
+# ----------------------------------------------------------------------- #
+def resolve_head_tail(ga: GrammarArrays, plan: HeadTailPlan, device=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The [R, h] head and tail buffers (int32, -1 past a short rule's
+    end), filled in masked rounds: a rule resolves once every rule it
+    copies from has resolved."""
+    from .batch import _resolve_buffers_batched
+
+    dev = resolve_device(device)
+
+    def resolve(side: str) -> torch.Tensor:
+        def put(name: str, dtype) -> torch.Tensor:
+            a = np.asarray(getattr(plan, f"{side}_{name}"), dtype)
+            return torch.as_tensor(a, device=dev)[None]
+        return _resolve_buffers_batched(
+            put("is_lit", bool), put("lit", np.int32), put("src", np.int64),
+            put("idx", np.int64), put("dep", np.int64))[0]
+
+    return resolve("head"), resolve("tail")
+
+
+# ----------------------------------------------------------------------- #
+# Device phase 2: gather streams, count windows (paper Fig. 8)             #
+# ----------------------------------------------------------------------- #
+def sequence_count(ga: GrammarArrays, l: int = 3, method: str = "frontier",
+                   weights: torch.Tensor | None = None, device=None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Count all l-grams of the corpus directly on the grammar.
+
+    Returns numpy (grams [U, l] int32, counts [U] float32) for the U
+    distinct l-grams, sorted lexicographically.  File splitters break
+    windows (sequences never span files).  ``weights`` lets callers reuse a
+    memoized traversal on the same device (must equal
+    ``top_down_weights(ga)``)."""
+    from .batch import _count_windows_batched
+    from .traversal import top_down_weights
+
+    if l < 2:
+        raise ValueError("sequence_count needs l >= 2")
+    dev = resolve_device(device)
+    htp = plan_head_tail(ga, l)
+    sp = plan_stream(ga, l)
+    head, tail = resolve_head_tail(ga, htp, dev)
+    if weights is None:
+        weights = top_down_weights(ga, method=method, device=dev)
+    elif weights.device != dev:
+        raise ValueError(f"weights are on {weights.device}, expected {dev}")
+
+    if sp.win_start.shape[0] == 0:
+        return np.zeros((0, l), np.int32), np.zeros((0,), np.float32)
+
+    def put(a, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, dtype), device=dev)[None]
+
+    stok, seg, counts = _count_windows_batched(
+        head[None], tail[None], weights[None], put(sp.st_kind, np.int8),
+        put(sp.st_lit, np.int32), put(sp.st_src, np.int64),
+        put(sp.st_idx, np.int64), put(sp.st_symj, np.int32),
+        put(sp.win_start, np.int64), put(sp.win_rule, np.int64),
+        torch.ones((1, len(sp.win_start)), dtype=torch.bool, device=dev), l)
+    stok = stok[0].cpu().numpy()
+    seg = seg[0].cpu().numpy()
+    counts = counts[0].cpu().numpy()
+    n_seg = int(seg[-1]) + 1
+    # representative token tuple of each segment = first row of the segment
+    first_idx = np.searchsorted(seg, np.arange(n_seg), "left")
+    grams = stok[first_idx]
+    cnts = counts[:n_seg]
+    keep = cnts > 0
+    return grams[keep].astype(np.int32), cnts[keep]

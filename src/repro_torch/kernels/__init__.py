@@ -4,6 +4,7 @@
 #   propagate_fused.py   — the whole ELL frontier loop in one launch
 #   propagate_vector.py  — one vector-payload (per-file) ELL round
 #   bincount.py          — weighted histogram (global result update)
+#   propagate.py         — ELL gather row sums of one corpus
 # ops.py: device-routed wrappers + ELL-vs-segment_sum predicates;
 # ref.py: plain torch versions (the CPU path and the kernels' oracles);
 # _common.py: device policy, the nvcc build, launch counters.

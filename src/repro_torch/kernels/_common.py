@@ -67,6 +67,11 @@ def resolve_device(device=None) -> torch.device:
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {dev} requested but CUDA is not "
                                f"available")
+        # "cuda" names the current card: give it its index, so that it
+        # compares equal to the device of the tensors made there and keys
+        # one memo entry per card
+        if dev.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
         return dev
     if dev.type == "cpu":
         return dev

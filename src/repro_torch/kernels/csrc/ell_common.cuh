@@ -1,5 +1,5 @@
-// Shared device helper of the ELL-plan kernels: the masked gather + row sum
-// of one plan row.
+// Shared device helpers of the ELL-plan kernels: the (masked) gather + row
+// sum of one plan row.
 //
 // A plan row is K consecutive (src, freq) entries.  A group of `lanes`
 // neighbouring threads (a power of two <= 32, so a group never straddles a
@@ -38,6 +38,27 @@ __device__ __forceinline__ void ell_row_gather(
   }
   *delta_out = d;
   *seen_out = s;
+}
+
+// The unmasked form: sum_k freq[base + k] * w[src[base + k]] of one plan
+// row, with the same lane layout, padding skip and shuffle fold.  Every lane
+// of the warp must call it; the group's sum lands on its lane 0.
+__device__ __forceinline__ float ell_row_dot(const float* w,
+                                             const int* __restrict__ src,
+                                             const float* __restrict__ freq,
+                                             long long base, int k, int lane,
+                                             int lanes, bool live) {
+  float d = 0.f;
+  if (live) {
+    for (int j = lane; j < k; j += lanes) {
+      const float q = freq[base + j];
+      if (q == 0.f) continue;
+      d += q * w[src[base + j]];
+    }
+  }
+  for (int off = lanes >> 1; off > 0; off >>= 1)
+    d += __shfl_down_sync(0xffffffffu, d, off, lanes);
+  return d;
 }
 
 }  // namespace repro

@@ -24,11 +24,12 @@ from repro_torch.obs import global_registry
 from . import _common, ref
 from .bincount import weighted_bincount_cuda
 from .propagate_batched import ell_propagate_batched_cuda
+from .propagate import ell_row_sums_cuda
 from .propagate_fused import ell_frontier_fused_cuda
 from .propagate_vector import ell_propagate_vector_cuda
 
 __all__ = [
-    "weighted_bincount", "weighted_bincount_batched",
+    "weighted_bincount", "weighted_bincount_batched", "ell_row_sums",
     "ell_propagate_batched", "ell_propagate_vector", "ell_frontier_fused",
     "bincount_batch_rows", "ell_batched_use_ref", "ell_fused_use_kernel",
     "ell_vector_plan_ok",
@@ -145,6 +146,27 @@ def weighted_bincount_batched(ids: torch.Tensor, vals: torch.Tensor,
         return flat_chunk(ids, vals)
     return torch.cat([flat_chunk(ids[s: s + rows], vals[s: s + rows])
                       for s in range(0, n, rows)], dim=0)
+
+
+def ell_row_sums(weights: torch.Tensor, src: torch.Tensor,
+                 freq: torch.Tensor) -> torch.Tensor:
+    """ELL gather row sums over a [rows, W] plan: ``out[r] = sum_k
+    freq[r, k] * weights[src[r, k]]`` (semantics in propagate.py).
+
+    CUDA tensors run the kernel whatever the size: the JAX package's
+    ``ell_use_ref`` row floor only kept tiny inputs off a TPU kernel."""
+    if weights.ndim != 1 or src.ndim != 2 or freq.shape != src.shape:
+        raise ValueError(f"expected [R] weights and matching [rows, W] "
+                         f"plans, got {tuple(weights.shape)} / "
+                         f"{tuple(src.shape)} / {tuple(freq.shape)}")
+    if src.shape[0] == 0:
+        return torch.zeros(0, dtype=torch.float32, device=src.device)
+    _count_dispatch("exec:ell_row_sums", _exec_path(src))
+    if not _common.on_cuda(src):
+        return ref.ell_row_sums_ref(weights, src, freq)
+    return ell_row_sums_cuda(weights.to(torch.float32).contiguous(),
+                             src.to(torch.int32).contiguous(),
+                             freq.to(torch.float32).contiguous())
 
 
 def _check_plan(src: torch.Tensor, freq: torch.Tensor) -> None:

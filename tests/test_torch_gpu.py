@@ -17,10 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+import repro_torch.core as tcore
 from repro_torch.core import (ANALYTICS_KINDS, METHODS, GrammarBatch,
                               compress_files, flatten, run_batched)
+from repro_torch.data import CompressedCorpus
 from repro_torch.kernels import _common, ops, ref
 from repro_torch.kernels.bincount import weighted_bincount_cuda
+from repro_torch.kernels.propagate import ell_row_sums_cuda
 from repro_torch.kernels.propagate_batched import ell_propagate_batched_cuda
 
 from _torch_inputs import (batch_dags, bincount_inputs, plan_inputs,
@@ -118,6 +121,56 @@ def test_bincount_on_card(cuda, n, nbins, integer, seeded_rng):
                           ref.weighted_bincount_ref(ids, vals.abs(), nbins))
 
 
+def _row_sums_inputs(rng, rows, k, R, integer):
+    """(weights [R], src [rows, k], freq): ~1/3 padding entries, and the
+    last source rule R-1 always referenced."""
+    src = rng.integers(0, R, (rows, k)).astype(np.int32)
+    src[-1, -1] = R - 1
+    freq = rng.integers(0, 3, (rows, k)).astype(np.float32)
+    freq[-1, -1] = 1.0
+    if integer:
+        w = rng.integers(0, 1000, R).astype(np.float32)
+    else:
+        w = rng.normal(size=R).astype(np.float32)
+    return w, src, freq
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("rows,k,R", [(64, 1, 10), (257, 3, 129),
+                                      (1001, 5, 77), (300, 16, 333),
+                                      (9, 1024, 5000)])
+def test_row_sums_on_card(cuda, rows, k, R, integer, seeded_rng):
+    """Kernel 5 at W in {1, 3, 5, 16, 1024}, row counts that are not a
+    multiple of a block's rows, and src at R-1."""
+    w, src, freq = args = _on(cuda, *_row_sums_inputs(seeded_rng, rows, k,
+                                                      R, integer))
+    before = _common.launch_counts().get("ell_row_sums", 0)
+    got = ops.ell_row_sums(*args)
+    assert _common.launch_counts()["ell_row_sums"] == before + 1
+    want = ref.ell_row_sums_ref(*args)
+    if integer:
+        _same([got], [want])
+    else:
+        abs_sum = ref.ell_row_sums_ref(w.abs(), src, freq.abs())
+        _within_sum_bound(got, want, torch.full_like(abs_sum, k), abs_sum)
+
+
+def test_row_sums_empty_and_bad_inputs_on_card(cuda):
+    w = torch.ones(5, device=cuda)
+    got = ops.ell_row_sums(w, torch.zeros((0, 3), dtype=torch.int32,
+                                          device=cuda),
+                           torch.zeros((0, 3), device=cuda))
+    assert got.shape == (0,) and got.device.type == "cuda"
+    src = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    freq = torch.zeros((4, 2), device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        ell_row_sums_cuda(w, src.long(), freq)
+    with pytest.raises(ValueError, match="contiguous"):
+        ell_row_sums_cuda(w, src, freq.T.contiguous().T)
+    with pytest.raises(ValueError, match="expected cuda"):
+        ell_row_sums_cuda(w.cpu(), src, freq)
+
+
 def test_wrappers_reject_bad_inputs_on_card(cuda):
     w = torch.zeros((1, 4), device=cuda)
     src = torch.zeros((1, 4, 2), dtype=torch.int32, device=cuda)
@@ -159,3 +212,109 @@ def test_engine_on_card_matches_cpu(cuda):
     assert all(counts[name] > 0 for name in (
         "ell_propagate_batched", "ell_frontier_fused",
         "ell_propagate_vector", "weighted_bincount")), counts
+
+
+def _single_corpus():
+    rng = np.random.default_rng(5)
+    base = rng.integers(0, 40, 30)
+    files = [np.concatenate([base] * int(rng.integers(2, 5))
+                            + [rng.integers(0, 40, 60)]) for _ in range(5)]
+    return files, 40
+
+
+def _equal(a, b, what):
+    for x, y in zip(a if isinstance(a, tuple) else (a,),
+                    b if isinstance(b, tuple) else (b,)):
+        x = x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+        y = y.cpu().numpy() if isinstance(y, torch.Tensor) else y
+        assert x.dtype == y.dtype, what
+        np.testing.assert_array_equal(x, y, err_msg=what)
+
+
+def test_single_corpus_on_card_matches_cpu(cuda):
+    """Every single-corpus traversal and analytic, under every method and
+    both word-count backends, gives on the card the CPU path's tensors bit
+    for bit; the ELL methods and the kernel backend went through kernels 1,
+    2 and 4, and the flow check through kernel 5."""
+    files, vocab = _single_corpus()
+    g, nf = compress_files(files, vocab)
+    ga = flatten(g, vocab, nf)
+    _common.reset_launch_counts()
+    for m in tcore.traversal.TOP_DOWN_METHODS:
+        for fn in (tcore.top_down_weights, tcore.per_file_weights):
+            got = fn(ga, m)
+            assert got.device.type == "cuda"
+            _equal(got, fn(ga, m, device="cpu"), f"{fn.__name__} {m}")
+    apps = ("word_count", "sort_words", "term_vector", "inverted_index",
+            "ranked_inverted_index", "sequence_count")
+    for m in tcore.traversal.TOP_DOWN_METHODS + ("auto",):
+        for app in apps:
+            fn = getattr(tcore, app)
+            _equal(fn(ga, method=m), fn(ga, method=m, device="cpu"),
+                   f"{app} {m}")
+        for app in ("word_count", "sort_words"):
+            fn = getattr(tcore, app)
+            _equal(fn(ga, method=m, backend="kernel"),
+                   fn(ga, method=m, device="cpu"), f"{app} {m} kernel")
+    _equal(tcore.bottom_up_tables(ga), tcore.bottom_up_tables(ga, "cpu"),
+           "bottom_up_tables")
+    _equal(tcore.bottom_up_bounds(ga), tcore.bottom_up_bounds(ga, "cpu"),
+           "bottom_up_bounds")
+    assert tcore.traversal_rounds(ga) == tcore.traversal_rounds(ga, "cpu")
+    w = tcore.top_down_weights(ga)
+    src, freq = (torch.as_tensor(a, device=cuda)
+                 for a in ga.in_edges_ell_dense())
+    flow = ops.ell_row_sums(w, src, freq)
+    assert float(flow[0]) == 0.0 and torch.equal(flow[1:], w[1:])
+    counts = _common.launch_counts()
+    assert all(counts[name] > 0 for name in (
+        "ell_propagate_batched", "ell_frontier_fused",
+        "ell_propagate_vector", "weighted_bincount", "ell_row_sums")), counts
+
+
+def test_store_on_card(cuda, tmp_path):
+    """The store's memo serves each device its own tensors, and an append
+    recomputes them on the card."""
+    files, vocab = _single_corpus()
+    cc = CompressedCorpus.build(files[:3], vocab)
+    w_gpu = cc.top_down_weights()
+    w_cpu = cc.top_down_weights(device="cpu")
+    assert w_gpu.device.type == "cuda" and w_cpu.device.type == "cpu"
+    assert cc.top_down_weights() is w_gpu
+    cc.append_files(files[3:])
+    fresh = CompressedCorpus.build(files, vocab)
+    _equal(cc.top_down_weights(), fresh.top_down_weights(device="cpu"),
+           "weights after append")
+    _equal(cc.per_file_weights("leveled"),
+           fresh.per_file_weights("leveled", device="cpu"),
+           "per-file weights after append")
+
+
+def test_explicit_cuda_device_shares_the_memo(cuda):
+    """``device="cuda"`` names the current card: weights memoized there
+    serve the analytics asked for on ``"cuda"``, and the store and the
+    engine hold one entry per card, whichever way it was named."""
+    files, vocab = _single_corpus()
+    cc = CompressedCorpus.build(files, vocab)
+    ga = cc.ga
+    card = f"cuda:{torch.cuda.current_device()}"
+    w = cc.top_down_weights(device="cuda")
+    assert cc.top_down_weights() is w
+    assert cc.top_down_weights(device=card) is w
+    wf = cc.per_file_weights(device="cuda")
+    _equal(tcore.word_count(ga, weights=w, device="cuda"),
+           tcore.word_count(ga, device="cpu"), "word_count")
+    _equal(tcore.sort_words(ga, weights=w, device="cuda"),
+           tcore.sort_words(ga, device="cpu"), "sort_words")
+    _equal(tcore.sequence_count(ga, weights=w, device="cuda"),
+           tcore.sequence_count(ga, device="cpu"), "sequence_count")
+    _equal(tcore.term_vector(ga, file_weights=wf, device="cuda"),
+           tcore.term_vector(ga, device="cpu"), "term_vector")
+    tcore.top_down_weights(ga, device="cuda")
+    tcore.top_down_weights(ga)
+    tcore.top_down_weights(ga, device=card)
+    engine = [k for k in tcore.traversal._ENGINE_CACHE
+              if k[1] == id(ga) and k[2].startswith("cuda")]
+    assert engine == [("pack", id(ga), card)]
+    store = [k for k in cc.cached_weight_keys() if k[0] == "top_down"]
+    assert store == [("top_down", "frontier", card)]

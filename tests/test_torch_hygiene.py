@@ -24,8 +24,11 @@ import pytest
 import torch
 
 from repro_torch.core import GrammarBatch, compress_files, flatten, run_batched
+from repro_torch.core import (analytics, bottom_up_tables, per_file_weights,
+                              sequence_count, traversal)
+from repro_torch.data import CompressedCorpus
 from repro_torch.kernels import _common, ops
-from repro_torch.kernels import (bincount, propagate_batched,
+from repro_torch.kernels import (bincount, propagate, propagate_batched,
                                  propagate_fused, propagate_vector)
 from repro_torch.obs import global_registry, plan_stage, span
 
@@ -34,7 +37,7 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
-KERNEL_MODULES = (bincount, propagate_batched, propagate_fused,
+KERNEL_MODULES = (bincount, propagate, propagate_batched, propagate_fused,
                   propagate_vector)
 
 
@@ -68,6 +71,36 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         _common.resolve_device("cuda")
     assert GrammarBatch.build(_tiny_gas(), device="cpu").device.type == "cpu"
+
+
+def test_cuda_without_index_names_the_current_card(monkeypatch):
+    """"cuda" resolves to the current card's index, so it equals the
+    device of the tensors made there and keys one memo entry per card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    for name in ("cuda", torch.device("cuda"), None):
+        assert _common.resolve_device(name) == torch.device("cuda", 3)
+    assert _common.resolve_device("cuda:1") == torch.device("cuda", 1)
+
+
+def test_single_corpus_entry_points_raise_without_cuda(monkeypatch):
+    """The single-corpus engine and the store run on the card unless the
+    caller asks for the CPU; with no card the default raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ga = _tiny_gas()[0]
+    corpus = CompressedCorpus.build([np.array([1, 2, 1, 2, 3])], 4)
+    for call in (lambda: traversal.top_down_weights(ga),
+                 lambda: analytics.word_count(ga),
+                 lambda: corpus.top_down_weights(),
+                 lambda: per_file_weights(ga),
+                 lambda: bottom_up_tables(ga),
+                 lambda: sequence_count(ga)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    w = traversal.top_down_weights(ga, device="cpu")
+    assert w.device.type == "cpu"
+    assert corpus.top_down_weights(device="cpu").device.type == "cpu"
+    assert analytics.word_count(ga, weights=w, device="cpu").shape == (4,)
 
 
 def test_unsupported_devices_raise():
@@ -109,7 +142,7 @@ def test_wrappers_bind_existing_entry_points(module):
 def test_every_source_is_built_and_keys_the_library(tmp_path, monkeypatch):
     names = {p.name for p in _common.sources()}
     assert {"propagate_batched.cu", "propagate_fused.cu",
-            "propagate_vector.cu", "bincount.cu"} <= names
+            "propagate_vector.cu", "bincount.cu", "row_sums.cu"} <= names
     before = _common.library_path()
     copy = tmp_path / "csrc"
     shutil.copytree(_common.CSRC_DIR, copy)

@@ -1,12 +1,13 @@
 """The port's kernel modules against the JAX package, on the CPU.
 
-For each of the four kernels on the packed engine's path, numpy-seeded
-inputs go through the port's plain torch version (the path every CPU tensor
-takes) and through the JAX package twice: its jnp reference
-(``repro.kernels.ref``) and its Pallas kernel in interpret mode.  Integer-
-valued inputs — every value on the engine path — must match exactly;
-arbitrary floats are summed in another order, so they get rtol=atol=1e-6.
-The CUDA kernels themselves run only on the card (tests/test_torch_gpu.py).
+For each of the five kernels, numpy-seeded inputs go through the port's
+plain torch version (the path every CPU tensor takes) and through the JAX
+package twice: its jnp reference (``repro.kernels.ref``) and its Pallas
+kernel in interpret mode.  Integer-valued inputs — every value on the
+engine path — must match exactly; arbitrary floats are summed in another
+order, so they get rtol=atol=1e-6 (rtol=1e-5 / atol=1e-4 for the row sums,
+the tolerance of the JAX package's own tests of that kernel).  The CUDA
+kernels themselves run only on the card (tests/test_torch_gpu.py).
 """
 
 import jax.numpy as jnp
@@ -17,6 +18,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.bincount import weighted_bincount_pallas
+from repro.kernels.propagate import ell_row_sums_pallas
 from repro.kernels.propagate_batched import ell_propagate_batched_pallas
 from repro.kernels.propagate_fused import ell_frontier_fused_pallas
 from repro.kernels.propagate_vector import ell_propagate_vector_pallas
@@ -28,6 +30,7 @@ from _torch_inputs import (batch_dags, bincount_inputs, plan_inputs,
 torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
+ROW_SUMS_TOL = dict(rtol=1e-5, atol=1e-4)
 
 
 def _t(*arrays):
@@ -38,13 +41,13 @@ def _j(*arrays):
     return [jnp.asarray(a) for a in arrays]
 
 
-def _check(got, want, integer: bool):
+def _check(got, want, integer: bool, tol=TOL):
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape and got.dtype == want.dtype
     if integer:
         np.testing.assert_array_equal(got, want)
     else:
-        np.testing.assert_allclose(got, want, **TOL)
+        np.testing.assert_allclose(got, want, **tol)
 
 
 # ------------------------------------------------------------ bincount --
@@ -80,6 +83,41 @@ def test_bincount_empty_and_bad_shapes():
     with pytest.raises(ValueError):
         ops.weighted_bincount_batched(torch.zeros((2, 3), dtype=torch.int32),
                                       torch.zeros((2, 4)), 4)
+
+
+# --------------------------------------------------------- ell_row_sums --
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("rows,w,R", [(64, 1, 10), (100, 4, 50),
+                                      (1000, 16, 333), (5000, 8, 4000),
+                                      (257, 3, 129)])
+def test_row_sums_matches_jax(rows, w, R, integer, seeded_rng):
+    """The shapes of the JAX package's own row-sum tests."""
+    src = seeded_rng.integers(0, R, (rows, w)).astype(np.int32)
+    freq = seeded_rng.integers(0, 5, (rows, w)).astype(np.float32)
+    wts = (seeded_rng.integers(0, 1000, R) if integer
+           else seeded_rng.normal(size=R)).astype(np.float32)
+    got = ref.ell_row_sums_ref(*_t(wts, src, freq))
+    _check(got, jref.ell_row_sums_ref(*_j(wts, src, freq)), integer,
+           ROW_SUMS_TOL)
+    _check(got, ell_row_sums_pallas(*_j(wts, src, freq), interpret=True),
+           integer, ROW_SUMS_TOL)
+    _check(ops.ell_row_sums(*_t(wts, src, freq)), got, True)
+
+
+def test_row_sums_empty_and_bad_shapes():
+    got = ops.ell_row_sums(torch.ones(5),
+                           torch.zeros((0, 3), dtype=torch.int32),
+                           torch.zeros((0, 3)))
+    want = jops.ell_row_sums(jnp.ones(5), jnp.zeros((0, 3), jnp.int32),
+                             jnp.zeros((0, 3)))
+    _check(got, want, True)
+    with pytest.raises(ValueError):
+        ops.ell_row_sums(torch.ones(5), torch.zeros((4, 3), dtype=torch.int32),
+                         torch.zeros((4, 2)))
+    with pytest.raises(ValueError):
+        ops.ell_row_sums(torch.ones((1, 5)),
+                         torch.zeros((4, 3), dtype=torch.int32),
+                         torch.zeros((4, 3)))
 
 
 # ---------------------------------------------------- propagate_batched --
@@ -204,4 +242,6 @@ def test_cpu_tensors_take_the_plain_path(seeded_rng):
     ops.ell_propagate_batched(*_t(*inputs))
     ops.ell_propagate_vector(*_t(*vector_inputs(seeded_rng, 2, 30, 2, 3)))
     ops.weighted_bincount(*_t(*bincount_inputs(seeded_rng, 100, 20)), 20)
+    w, _, src, freq = plan_inputs(seeded_rng, 1, 70, 4, 30)
+    ops.ell_row_sums(*_t(w[0], src[0], freq[0]))
     assert _common.launch_counts() == before
