@@ -38,8 +38,12 @@ CUDA toolkit.  Phases:
    version on the same card inputs (exact equality: all values are
    integer-valued float32 below 2^24), timed with CUDA events (median of
    20 runs after warm-up) beside its bound (bytes over 3.35 TB/s or
-   float32 operations over 67 TFLOP/s) and, for the histogram, a masked
-   ``torch.bincount`` yardstick the port never calls.
+   float32 operations over 67 TFLOP/s) and, for the histogram and the row
+   sums, a library yardstick the port never calls.  The fused frontier
+   kernel is timed at the pack and again on the single corpus's N=1 plan
+   (extra ``single_*`` fields of its record), each with the grid of its
+   cooperative launch and a breakdown (the kernel cut to one round against
+   the whole loop).
 
 It prints one ``{"kernels": [...]}`` line and, last, the device line, and
 exits non-zero on any failure — or at once when there is no CUDA device or
@@ -448,10 +452,62 @@ def max_abs_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
+def fused_args(gb):
+    """Kernel 2's inputs for the scalar traversal of pack ``gb``: root
+    weights, in-degrees, the ELL plan and its exact round bound."""
+    import torch
+    src, freq, _, num_levels = gb.ell_plan()
+    n, R, _ = src.shape
+    w0 = torch.zeros((n, R), dtype=torch.float32, device=src.device)
+    w0[:, 0] = 1.0
+    return w0, gb.in_deg.to(torch.float32), src, freq, num_levels
+
+
+def fused_timing(fargs, dev, label: str):
+    """Kernel 2 and its plain version on one plan: ``(got, want, ms,
+    plain_ms, bound, grid)``.  Also times the kernel cut to one round, so the
+    rounds' share of the time shows: phase 0 (the one read of the plan)
+    plus one round, against the whole loop."""
+    import torch
+    from repro_torch.kernels import ops, propagate_fused, ref
+    w0, ind, src, freq, max_rounds = fargs
+    got = ops.ell_frontier_fused(*fargs, with_rounds=True)
+    want = ref.ell_frontier_fused_ref(*fargs)
+    ms = time_ms(lambda: ops.ell_frontier_fused(*fargs), dev)
+    one_ms = time_ms(lambda: ops.ell_frontier_fused(w0, ind, src, freq, 1),
+                     dev)
+    plain_ms = time_ms(lambda: ref.ell_frontier_fused_ref(*fargs), dev)
+    rounds = int(got[1].max())
+    edges = int((freq != 0).sum())
+    n, R = w0.shape
+    # read once: w0, in_deg, freq and the real edges' src; every edge
+    # contributes once over the whole traversal; weights and rounds out
+    b = bound(nbytes(w0, ind, freq) + 4 * edges + n * R * 4 + n * 4,
+              4 * edges)
+    blocks, per_sm, sms = propagate_fused.last_grid
+    per_round = ((ms - one_ms) / (rounds - 1)) if rounds > 1 else 0.0
+    # rows by live length (last real entry + 1), split as the kernel
+    # splits them: one thread up to 4 entries, one warp up to 128
+    pos = torch.arange(1, freq.shape[-1] + 1, dtype=torch.int32,
+                       device=freq.device)
+    live = torch.where(freq != 0, pos, 0).amax(dim=-1)
+    tiers = [int((live == 0).sum()), int(((live > 0) & (live <= 4)).sum()),
+             int(((live > 4) & (live <= 128)).sum()), int((live > 128).sum())]
+    log(f"[kernel] ell_frontier_fused {label} grid: {blocks} blocks "
+        f"(co-resident {per_sm} a SM x {sms} SMs); breakdown: phase 0 + "
+        f"1 round {one_ms:.5g} ms, all {rounds} rounds {ms:.5g} ms, "
+        f"{per_round:.5g} ms a further round; {edges} real edges in "
+        f"{freq.numel()} plan entries; rows by live length: {tiers[0]} "
+        f"empty, {tiers[1]} of 1-4, {tiers[2]} of 5-128, {tiers[3]} longer "
+        f"(max {int(live.max())})")
+    return got, want, ms, plain_ms, b, [blocks, per_sm, sms]
+
+
 def kernel_phase(gb, sub, single, dev):
     """Each kernel at the main path's shapes against its plain version."""
     import torch
     from repro_torch.core import batch as tb
+    from repro_torch.core.traversal import device_pack
     from repro_torch.kernels import ops, ref
 
     out = []
@@ -488,25 +544,34 @@ def kernel_phase(gb, sub, single, dev):
                  4 * edges))
     log(f"[kernel] ell_propagate_batched shape: N={n} R={R} K={K}")
 
-    # 2. the whole frontier loop
-    w0 = torch.zeros((n, R), dtype=torch.float32, device=dev)
-    w0[:, 0] = 1.0
-    ind = gb.in_deg.to(torch.float32)
-    fargs = (w0, ind, src, freq, num_levels)
-    got = ops.ell_frontier_fused(*fargs, with_rounds=True)
-    want = ref.ell_frontier_fused_ref(*fargs)
+    # 2. the whole frontier loop, at the pack and on the single corpus's
+    #    N=1 plan
+    fargs = fused_args(gb)
+    got, want, ms, plain_ms, b, grid = fused_timing(fargs, dev, "pack")
     check(torch.equal(got[0], w), "fused weights differ from frontier")
-    rounds = int(got[1].max())
     record("ell_frontier_fused", "propagate_fused.cu",
-           "src/repro/kernels/propagate_fused.py:145", got, want,
-           time_ms(lambda: ops.ell_frontier_fused(*fargs), dev),
-           time_ms(lambda: ref.ell_frontier_fused_ref(*fargs), dev),
-           # read once: w0, in_deg, freq and the real edges' src; every
-           # edge contributes once over the whole traversal
-           bound(nbytes(w0, ind, freq) + 4 * edges + n * R * 4 + n * 4,
-                 4 * edges))
+           "src/repro/kernels/propagate_fused.py:145", got, want, ms,
+           plain_ms, b)
     log(f"[kernel] ell_frontier_fused: max_rounds={num_levels}, rounds per "
-        f"corpus {got[1].tolist()} (max {rounds})")
+        f"corpus {got[1].tolist()} (max {int(got[1].max())})")
+    ga, sw = single
+    sargs = fused_args(device_pack(ga, dev))
+    sgot, swant, sms, splain_ms, sb, sgrid = fused_timing(sargs, dev,
+                                                          "single")
+    check(all(torch.equal(g, p) for g, p in zip(sgot, swant)),
+          "ell_frontier_fused single: kernel differs from its plain version")
+    check(torch.equal(sgot[0][0], sw),
+          "ell_frontier_fused single: weights differ from frontier")
+    _, sR, sK = sargs[2].shape
+    log(f"[kernel] ell_frontier_fused single: exact; {sms:.5g} ms (plain "
+        f"{splain_ms:.5g} ms, bound {sb[0]:.5g} ms by {sb[1]}); N=1 R={sR} "
+        f"K={sK} max_rounds={sargs[4]}, rounds {int(sgot[1][0])}")
+    out[-1].update({
+        "grid": grid, "single_grid": sgrid, "single_shape": [1, sR, sK],
+        "single_max_abs_err": max(max_abs_err(g, p)
+                                  for g, p in zip(sgot, swant)),
+        "single_ms": sms, "single_plain_ms": splain_ms,
+        "single_bound_ms": sb[0], "single_bound_by": sb[1]})
 
     # 3. one vector round on the subset pack: level-1 non-root parents,
     #    real per-file weights

@@ -48,8 +48,9 @@ ELL_PLAN_MAX_ENTRIES = 1 << 27
 # The rule count above which the engines run the per-round path instead of
 # the fused kernel.  This is still the TPU's number (six VMEM-resident
 # [R_pad] float32 vectors, ~24 B/rule); the CUDA fused kernel keeps its
-# state in device memory and has no such limit, so the gate is kept only
-# for routing parity with the JAX package until it is re-derived.
+# state in device memory (60 B/rule of scratch, N * R < 2^31) and has no
+# such limit, so the gate is kept only for routing parity with the JAX
+# package.
 ELL_FUSED_MAX_RULES = 1 << 18
 
 

@@ -48,21 +48,23 @@ def bincount_inputs(rng, n: int, nbins: int, integer: bool = True):
     return ids, vals
 
 
-def random_dag(rng, R: int, max_deg: int):
-    """A random rule DAG in ELL form with rule indices in topological
-    order; returns (src, freq, in_deg, exact weights, depth)."""
-    src = np.zeros((R, max_deg), np.int32)
-    freq = np.zeros((R, max_deg), np.float32)
+def _dag(rng, R: int, k: int, parents):
+    """A rule DAG in ELL form with rule indices in topological order: rule
+    r >= 1 takes the parents ``parents(r)`` (earlier rules) with
+    frequencies 1-3, or the root alone where the weight would reach 2^22.
+    Returns (src, freq, in_deg, exact weights, depth)."""
+    src = np.zeros((R, k), np.int32)
+    freq = np.zeros((R, k), np.float32)
     in_deg = np.zeros(R, np.int32)
     w = np.zeros(R, np.float64)
     lvl = np.zeros(R, np.int64)
     w[0] = 1.0
     for r in range(1, R):
-        d = int(rng.integers(1, min(max_deg, r) + 1))
-        ps = rng.choice(r, size=d, replace=False)
-        fs = rng.integers(1, 4, size=d)
+        ps = parents(r)
+        fs = rng.integers(1, 4, size=len(ps))
         if float((fs * w[ps]).sum()) > (1 << 22):
-            ps, fs, d = np.array([0]), np.array([1]), 1   # keep w < 2^23
+            ps, fs = np.array([0]), np.array([1])       # keep w < 2^23
+        d = len(ps)
         src[r, :d] = ps
         freq[r, :d] = fs
         in_deg[r] = d
@@ -71,17 +73,127 @@ def random_dag(rng, R: int, max_deg: int):
     return src, freq, in_deg, w.astype(np.float32), int(lvl.max())
 
 
-def batch_dags(rng, R: int, max_deg: int, n: int):
-    """n random DAGs on one [n, R, K] plan: (w0, in_deg float32, src, freq,
-    exact weights, max depth)."""
-    parts = [random_dag(rng, R, max_deg) for _ in range(n)]
-    src = np.stack([p[0] for p in parts])
-    freq = np.stack([p[1] for p in parts])
-    ind = np.stack([p[2] for p in parts]).astype(np.float32)
-    want = np.stack([p[3] for p in parts])
+def random_dag(rng, R: int, max_deg: int):
+    """A random rule DAG of in-degree 1..max_deg (see :func:`_dag`)."""
+    return _dag(rng, R, max_deg, lambda r: rng.choice(
+        r, size=int(rng.integers(1, min(max_deg, r) + 1)), replace=False))
+
+
+def _stack(parts):
+    """(w0, in_deg float32, src, freq, exact weights, max depth) of DAGs
+    from :func:`_dag` on one [n, R, K] plan, the root weighing 1."""
+    n, R = len(parts), parts[0][0].shape[0]
     w0 = np.zeros((n, R), np.float32)
     w0[:, 0] = 1.0
-    return w0, ind, src, freq, want, max(p[4] for p in parts)
+    return (w0, np.stack([p[2] for p in parts]).astype(np.float32),
+            np.stack([p[0] for p in parts]), np.stack([p[1] for p in parts]),
+            np.stack([p[3] for p in parts]), max(p[4] for p in parts))
+
+
+def batch_dags(rng, R: int, max_deg: int, n: int):
+    """n random DAGs on one [n, R, K] plan (see :func:`_stack`)."""
+    return _stack([random_dag(rng, R, max_deg) for _ in range(n)])
+
+
+def skewed_dag(rng, R: int, k: int, n_long: int, long_deg: Tuple[int, int],
+               hubs: int):
+    """A rule DAG whose rows are short and skewed, like the engine's plans:
+    rules 1..hubs hang off the root, most later rules have 1-3 parents, and
+    ``n_long`` of them have ``long_deg`` (lo, hi) parents among the hubs
+    (see :func:`_dag`)."""
+    long_rows = set(rng.choice(np.arange(hubs + 1, R), size=n_long,
+                               replace=False).tolist())
+
+    def parents(r):
+        if r <= hubs:
+            return np.array([0])
+        if r in long_rows:
+            return rng.choice(np.arange(1, hubs + 1), replace=False,
+                              size=int(rng.integers(long_deg[0],
+                                                    long_deg[1] + 1)))
+        return rng.choice(r, replace=False,
+                          size=int(rng.integers(1, min(3, r) + 1)))
+    return _dag(rng, R, k, parents)
+
+
+def skewed_dags(rng, R: int, k: int, n: int, n_long: int,
+                long_deg: Tuple[int, int], hubs: int):
+    """n skewed DAGs on one [n, R, k] plan (see :func:`_stack`)."""
+    return _stack([skewed_dag(rng, R, k, n_long, long_deg, hubs)
+                   for _ in range(n)])
+
+
+def widen(src, freq, k: int):
+    """The [n, R, K] plan widened to k >= K entries a row (padding
+    appended)."""
+    n, R, k0 = src.shape
+    wide_src = np.zeros((n, R, k), np.int32)
+    wide_freq = np.zeros((n, R, k), np.float32)
+    wide_src[:, :, :k0] = src
+    wide_freq[:, :, :k0] = freq
+    return wide_src, wide_freq
+
+
+def interleave_padding(rng, src, freq, k: int):
+    """The [n, R, K] plan widened to k >= K entries a row, then each row's
+    entries shuffled, so the real entries sit among the padding."""
+    n, R, _ = src.shape
+    wide_src, wide_freq = widen(src, freq, k)
+    perm = np.argsort(rng.random((n, R, k)), axis=-1)
+    wide_src = np.take_along_axis(wide_src, perm, axis=-1)
+    wide_freq = np.take_along_axis(wide_freq, perm, axis=-1)
+    # padding gets a random in-range src: nothing may read through it
+    pad = wide_freq == 0
+    wide_src[pad] = rng.integers(0, R, int(pad.sum()))
+    return wide_src, wide_freq
+
+
+def raise_in_deg(rng, in_deg, share: float):
+    """in_deg with ``share`` of the non-root rules asking for one more
+    parent than the plan gives them: those rules never become ready."""
+    out = in_deg.copy()
+    hit = rng.random(out.shape) < share
+    hit[:, 0] = False
+    out[hit] += 1.0
+    return out
+
+
+#: The plans the fused frontier kernel must treat exactly like its plain
+#: version, beyond well-formed left-packed ones (see :func:`fused_case`).
+FUSED_CASES = ("interleaved_padding", "skewed_rows", "cut_max_rounds",
+               "inconsistent_in_deg")
+
+
+def fused_case(rng, case: str, n: int, R: int, k: int):
+    """(w0, in_deg, src, freq, max_rounds) of one fused-traversal case on
+    an [n, R, k] plan:
+
+    - ``interleaved_padding``: random DAGs of in-degree <= k // 2 whose real
+      entries are shuffled among the padding of each row;
+    - ``skewed_rows``: mostly 1-3 parents a rule and a few rules with
+      3/5 to 2/3 of k parents (:func:`skewed_dags`);
+    - ``cut_max_rounds``: ``max_rounds`` half the DAGs' depth, so the loop
+      is cut before the frontier empties;
+    - ``inconsistent_in_deg``: a tenth of the rules ask for one more parent
+      than the plan gives them (:func:`raise_in_deg`).
+    """
+    if case not in FUSED_CASES:
+        raise ValueError(f"unknown fused case {case!r}")
+    if case == "skewed_rows":
+        long_deg = (k * 3 // 5, k * 2 // 3)
+        w0, ind, src, freq, _, depth = skewed_dags(
+            rng, R, k, n, max(1, R // 200), long_deg, long_deg[1])
+        return w0, ind, src, freq, depth + 1
+    w0, ind, src, freq, _, depth = batch_dags(rng, R, max(1, k // 2), n)
+    if case == "interleaved_padding":
+        src, freq = interleave_padding(rng, src, freq, k)
+    else:
+        src, freq = widen(src, freq, k)
+    if case == "cut_max_rounds":
+        return w0, ind, src, freq, max(1, depth // 2)
+    if case == "inconsistent_in_deg":
+        ind = raise_in_deg(rng, ind, 0.1)
+    return w0, ind, src, freq, depth + 1
 
 
 def corpus_files(rng, vocab: int, n_files: int, size: int

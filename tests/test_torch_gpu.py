@@ -21,13 +21,14 @@ import repro_torch.core as tcore
 from repro_torch.core import (ANALYTICS_KINDS, METHODS, GrammarBatch,
                               compress_files, flatten, run_batched)
 from repro_torch.data import CompressedCorpus
-from repro_torch.kernels import _common, ops, ref
+from repro_torch.kernels import _common, ops, propagate_fused, ref
 from repro_torch.kernels.bincount import weighted_bincount_cuda
 from repro_torch.kernels.propagate import ell_row_sums_cuda
 from repro_torch.kernels.propagate_batched import ell_propagate_batched_cuda
 
-from _torch_inputs import (batch_dags, bincount_inputs, plan_inputs,
-                           ragged_corpora, vector_inputs)
+from _torch_inputs import (FUSED_CASES, batch_dags, bincount_inputs,
+                           fused_case, plan_inputs, ragged_corpora,
+                           vector_inputs)
 
 torch.set_num_threads(1)
 
@@ -105,6 +106,69 @@ def test_frontier_fused_on_card(cuda, R, max_deg, n, seeded_rng):
     pw, pr = ref.ell_frontier_fused_ref(*args, depth + 2)
     _same((w, rounds), (pw, pr))
     np.testing.assert_array_equal(w.cpu().numpy(), want)
+
+
+def _fused_on_card(args, max_rounds):
+    """The kernel (synchronised, so a fault shows here) and the plain
+    version on the same card inputs."""
+    got = ops.ell_frontier_fused(*args, max_rounds, with_rounds=True)
+    torch.cuda.synchronize()
+    return got, ref.ell_frontier_fused_ref(*args, max_rounds)
+
+
+@pytest.mark.parametrize("n,R,k", [(1, 2000, 1024), (16, 777, 1024)])
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_frontier_fused_cases_on_card(cuda, case, n, R, k, seeded_rng):
+    """Padding interleaved within rows, skewed rows of 600-700 entries
+    among rows of 1-3 (the long-row path), a cut round loop, and rules
+    that never become ready, at N=1 and N=16 (R=777 is no multiple of a
+    block's rows)."""
+    w0, ind, src, freq, max_rounds = fused_case(seeded_rng, case, n, R, k)
+    got, want = _fused_on_card(_on(cuda, w0, ind, src, freq), max_rounds)
+    _same(got, want)
+    if case == "cut_max_rounds":
+        assert int(got[1].max()) == max_rounds
+
+
+@pytest.mark.parametrize("n", [1, 16])
+def test_frontier_fused_single_rule_on_card(cuda, n, seeded_rng):
+    """R=1: the root alone, with a self-edge on some corpora and in_deg 0,
+    1 or 2 (only in_deg 0 starts a frontier)."""
+    w0 = seeded_rng.integers(1, 5, (n, 1)).astype(np.float32)
+    ind = seeded_rng.integers(0, 3, (n, 1)).astype(np.float32)
+    src = np.zeros((n, 1, 3), np.int32)
+    freq = seeded_rng.integers(0, 3, (n, 1, 3)).astype(np.float32)
+    got, want = _fused_on_card(_on(cuda, w0, ind, src, freq), 3)
+    _same(got, want)
+
+
+def test_frontier_fused_back_to_back_on_card(cuda, seeded_rng):
+    """Calls in a row on one stream carry nothing over (flags, live
+    lengths, the long-row list, the weight buffers): each equals the plain
+    version, and the first input gives the same result again."""
+    a = fused_case(seeded_rng, "skewed_rows", 4, 1500, 1024)
+    b = fused_case(seeded_rng, "interleaved_padding", 2, 600, 64)
+    a_args, b_args = _on(cuda, *a[:4]), _on(cuda, *b[:4])
+    first = ops.ell_frontier_fused(*a_args, a[4], with_rounds=True)
+    second = ops.ell_frontier_fused(*b_args, b[4], with_rounds=True)
+    again = ops.ell_frontier_fused(*a_args, a[4], with_rounds=True)
+    torch.cuda.synchronize()
+    _same(first, ref.ell_frontier_fused_ref(*a_args, a[4]))
+    _same(second, ref.ell_frontier_fused_ref(*b_args, b[4]))
+    _same(again, first)
+
+
+def test_frontier_fused_grid_covers_every_sm(cuda, seeded_rng):
+    """A plan with more lane groups of rows than the card holds threads
+    launches the full co-resident grid: every SM, as many blocks a SM as
+    the occupancy allows."""
+    w0, ind, src, freq, max_rounds = fused_case(
+        seeded_rng, "cut_max_rounds", 16, 4000, 64)
+    _fused_on_card(_on(cuda, w0, ind, src, freq), max_rounds)
+    blocks, per_sm, sms = propagate_fused.last_grid
+    props = torch.cuda.get_device_properties(cuda)
+    assert sms == props.multi_processor_count
+    assert per_sm >= 1 and blocks == per_sm * sms
 
 
 @pytest.mark.parametrize("integer", [True, False])

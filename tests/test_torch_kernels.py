@@ -24,8 +24,8 @@ from repro.kernels.propagate_fused import ell_frontier_fused_pallas
 from repro.kernels.propagate_vector import ell_propagate_vector_pallas
 from repro_torch.kernels import _common, ops, ref
 
-from _torch_inputs import (batch_dags, bincount_inputs, plan_inputs,
-                           vector_inputs)
+from _torch_inputs import (batch_dags, bincount_inputs, fused_case,
+                           plan_inputs, vector_inputs)
 
 torch.set_num_threads(1)
 
@@ -200,6 +200,30 @@ def test_frontier_fused_matches_jax(R, max_deg, n, seeded_rng):
                                     rounds_bound + 3, with_rounds=True)
     _check(ew, w, True)
     _check(er, rounds, True)
+
+
+@pytest.mark.parametrize("case,n,R,k", [
+    ("interleaved_padding", 3, 130, 12), ("skewed_rows", 2, 300, 64),
+    ("cut_max_rounds", 2, 257, 6), ("inconsistent_in_deg", 2, 200, 8)])
+def test_frontier_fused_edge_plans_match_jax(case, n, R, k, seeded_rng):
+    """Plans the CUDA kernel treats specially (padding anywhere in a row,
+    long skewed rows, a cut round loop, rules that never become ready):
+    the plain version's weights and round counts equal the JAX reference
+    and the interpret-mode Pallas kernel."""
+    w0, ind, src, freq, rounds_bound = fused_case(seeded_rng, case, n, R, k)
+    w, rounds = ops.ell_frontier_fused(*_t(w0, ind, src, freq),
+                                       rounds_bound, with_rounds=True)
+    jw, jr = jref.ell_frontier_fused_ref(*_j(w0, ind, src, freq),
+                                         rounds_bound, with_rounds=True)
+    pw, pr = ell_frontier_fused_pallas(*_j(w0, ind, src, freq),
+                                       rounds_bound, br=64, interpret=True)
+    for want_w, want_r in ((jw, jr), (pw, pr)):
+        _check(w, want_w, True)
+        _check(rounds, want_r, True)
+    if case == "cut_max_rounds":
+        assert int(rounds.max()) == rounds_bound
+    if case == "inconsistent_in_deg":
+        assert bool((w.numpy() == 0).any())       # unreached rules stay 0
 
 
 def test_frontier_fused_empty_plan():
