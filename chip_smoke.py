@@ -36,14 +36,19 @@ CUDA toolkit.  Phases:
    oracle built from the raw token files.
 4. Kernels: each kernel at the main path's shapes against its plain torch
    version on the same card inputs (exact equality: all values are
-   integer-valued float32 below 2^24), timed with CUDA events (median of
-   20 runs after warm-up) beside its bound (bytes over 3.35 TB/s or
-   float32 operations over 67 TFLOP/s) and, for the histogram and the row
-   sums, a library yardstick the port never calls.  The fused frontier
-   kernel is timed at the pack and again on the single corpus's N=1 plan
-   (extra ``single_*`` fields of its record), each with the grid of its
-   cooperative launch and a breakdown (the kernel cut to one round against
-   the whole loop).
+   integer-valued float32 below 2^24), timed with CUDA events around one
+   wrapper call (``ms``, median of 20 runs after warm-up) beside its bound
+   (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s) and, for
+   the histogram and the row sums, a library yardstick the port never
+   calls.  Each record splits that time: ``device_ms`` is the device's own
+   time a call (the kernels and memsets the call launches, from
+   ``torch.profiler``; ``device_ops`` lists them) and ``host_us`` the
+   wrapper's host cost a call (200 calls back to back on the host clock).
+   The histogram is also timed in the engine's batched call
+   (``batched_*`` fields).  The fused frontier kernel is timed at the pack
+   and again on the single corpus's N=1 plan (extra ``single_*`` fields of
+   its record), each with the grid of its cooperative launch and a
+   breakdown (the kernel cut to one round against the whole loop).
 
 It prints one ``{"kernels": [...]}`` line and, last, the device line, and
 exits non-zero on any failure — or at once when there is no CUDA device or
@@ -85,6 +90,10 @@ FP32_OPS_PER_S = 67e12
 
 TIMING_REPS = 20
 TIMING_WARMUP = 3
+# back-to-back wrapper calls timed on the host clock for host_us
+HOST_CALLS = 200
+# profiler traces taken before device_ms gives up
+PROFILE_ATTEMPTS = 3
 
 
 def log(msg: str) -> None:
@@ -423,6 +432,67 @@ def time_ms(fn, dev) -> float:
     return statistics.median(samples)
 
 
+def short_name(kernel: str) -> str:
+    """A device activity's name without its namespaces and signature."""
+    base = kernel.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return base.split("(")[0].split("<")[0].rsplit("::", 1)[-1].strip()
+
+
+def device_split(fn, dev):
+    """``(device_ms, host_us, device_ops)`` of one wrapper call.
+
+    ``device_ms`` is the median over TIMING_REPS calls of the device's own
+    time per call: the summed durations of the kernels and memsets the call
+    puts on the card, from ``torch.profiler`` (CUPTI, which also sees the
+    launches made through ctypes).  ``device_ops`` lists those activities,
+    each with its median microseconds.  ``host_us`` is the host's cost per
+    call: HOST_CALLS calls back to back on the host clock, with no
+    synchronize between them.  On the CPU all three are None: they are
+    device metrics.
+    """
+    import torch
+    if dev.type != "cuda":
+        return None, None, None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(TIMING_WARMUP):
+        fn()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn()
+    host_us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+    torch.cuda.synchronize(dev)
+
+    # a trace now and then comes back without the device's activities;
+    # such a trace is taken again
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TIMING_REPS):
+                fn()
+            torch.cuda.synchronize(dev)
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
+                     key=lambda e: e.time_range.start)
+        if evs and len(evs) % TIMING_REPS == 0:
+            break
+        log(f"[kernel] trace of {TIMING_REPS} calls held {len(evs)} device "
+            f"activities; tracing again")
+    check(bool(evs) and len(evs) % TIMING_REPS == 0,
+          f"{len(evs)} device activities traced in {TIMING_REPS} calls, "
+          f"{PROFILE_ATTEMPTS} times: none, or no fixed count a call")
+    per = len(evs) // TIMING_REPS
+    calls = [evs[i: i + per] for i in range(0, len(evs), per)]
+    total = statistics.median(sum(e.time_range.elapsed_us() for e in c)
+                              for c in calls)
+    ops = [{"name": short_name(calls[0][j].name),
+            "us": statistics.median(c[j].time_range.elapsed_us()
+                                    for c in calls)}
+           for j in range(per)]
+    return total / 1e3, host_us, ops
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -515,17 +585,26 @@ def kernel_phase(gb, sub, single, dev):
     w = tb.batched_top_down_weights(gb, "frontier")
     n, R, K = src.shape
 
-    def record(name, cu, replaces, got, want, ms, plain_ms, b, lib_ms=None):
+    def record(name, cu, replaces, got, want, fn, plain_ms, b, lib_ms=None,
+               ms=None):
+        """One kernel's record; ``fn`` calls its ops.py wrapper (timed here
+        unless ``ms`` is given)."""
         err = max(max_abs_err(g, p) for g, p in zip(got, want))
         check(all(torch.equal(g, p) for g, p in zip(got, want)),
               f"{name}: kernel differs from its plain version "
               f"(max abs err {err})")
+        if ms is None:
+            ms = time_ms(fn, dev)
+        dev_ms, host_us, dev_ops = device_split(fn, dev)
         out.append({"name": name, "route": "cuda",
                     "source": f"src/repro_torch/kernels/csrc/{cu}",
                     "replaces": replaces, "max_abs_err": err,
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+                    "ms": ms, "device_ms": dev_ms, "host_us": host_us,
+                    "device_ops": dev_ops,
+                    "plain_ms": plain_ms, "bound_ms": b[0],
                     "bound_by": b[1], "library_ms": lib_ms})
-        log(f"[kernel] {name}: exact; {ms:.5g} ms (plain {plain_ms:.5g} ms, "
+        log(f"[kernel] {name}: exact; {ms:.5g} ms (device {dev_ms} ms: "
+            f"{dev_ops}; host {host_us} us a call; plain {plain_ms:.5g} ms, "
             f"bound {b[0]:.5g} ms by {b[1]}"
             + (f", library {lib_ms:.5g} ms" if lib_ms is not None else "")
             + ")")
@@ -538,7 +617,7 @@ def kernel_phase(gb, sub, single, dev):
     edges = int((freq != 0).sum())
     record("ell_propagate_batched", "propagate_batched.cu",
            "src/repro/kernels/propagate_batched.py:96", got, want,
-           time_ms(lambda: ops.ell_propagate_batched(*args), dev),
+           lambda: ops.ell_propagate_batched(*args),
            time_ms(lambda: ref.ell_propagate_batched_ref(*args), dev),
            bound(plan_read_bytes(src, freq, active, 4) + 2 * n * R * 4,
                  4 * edges))
@@ -550,8 +629,8 @@ def kernel_phase(gb, sub, single, dev):
     got, want, ms, plain_ms, b, grid = fused_timing(fargs, dev, "pack")
     check(torch.equal(got[0], w), "fused weights differ from frontier")
     record("ell_frontier_fused", "propagate_fused.cu",
-           "src/repro/kernels/propagate_fused.py:145", got, want, ms,
-           plain_ms, b)
+           "src/repro/kernels/propagate_fused.py:145", got, want,
+           lambda: ops.ell_frontier_fused(*fargs), plain_ms, b, ms=ms)
     log(f"[kernel] ell_frontier_fused: max_rounds={num_levels}, rounds per "
         f"corpus {got[1].tolist()} (max {int(got[1].max())})")
     ga, sw = single
@@ -587,12 +666,15 @@ def kernel_phase(gb, sub, single, dev):
     vedges = int((vfreq != 0).sum())
     record("ell_propagate_vector", "propagate_vector.cu",
            "src/repro/kernels/propagate_vector.py:111", got, want,
-           time_ms(lambda: ops.ell_propagate_vector(*vargs), dev),
+           lambda: ops.ell_propagate_vector(*vargs),
            time_ms(lambda: ref.ell_propagate_vector_ref(*vargs), dev),
            bound(plan_read_bytes(vsrc, vfreq, vactive, 4 * F)
                  + vn * vR * (F + 1) * 4, 3 * vedges * F))
+    taken = int(((vfreq != 0) & (torch.gather(
+        vactive, 1, vsrc.reshape(vn, -1).long()).reshape(vsrc.shape) > 0)
+        ).sum())
     log(f"[kernel] ell_propagate_vector subset shape: N={vn} R={vR} K={vK} "
-        f"F={F}")
+        f"F={F}; {vedges} live plan entries, {taken} of them active")
 
     # 4. the word-count histogram over the flat-offset batch
     vals = gb.tw_cnt * torch.gather(w, 1, gb.tw_rule)
@@ -611,13 +693,32 @@ def kernel_phase(gb, sub, single, dev):
           "torch.bincount yardstick disagrees")
     record("weighted_bincount", "bincount.cu",
            "src/repro/kernels/bincount.py:78", (got,), (want,),
-           time_ms(lambda: ops.weighted_bincount(ids, flat_vals, nbins), dev),
+           lambda: ops.weighted_bincount(ids, flat_vals, nbins),
            time_ms(lambda: ref.weighted_bincount_ref(ids, flat_vals, nbins),
                    dev),
            bound(nbytes(ids, flat_vals) + nbins * 4, ids.numel()),
            time_ms(lambda: torch.bincount(lib_ids, weights=lib_vals,
                                           minlength=nbins), dev))
     log(f"[kernel] weighted_bincount shape: n={ids.numel()} nbins={nbins}")
+
+    # the call the engine makes (batched_word_count, backend "kernel")
+    def k4b():
+        return ops.weighted_bincount_batched(gb.tw_word, vals, gb.V_pad)
+    got = k4b()
+    for i in range(n):
+        check(torch.equal(got[i], ref.weighted_bincount_ref(
+            gb.tw_word[i], vals[i], gb.V_pad)),
+            f"weighted_bincount_batched row {i} differs from the plain "
+            f"version")
+    bdev, bhost, bops = device_split(k4b, dev)
+    out[-1].update({"batched_ms": time_ms(k4b, dev),
+                    "batched_device_ms": bdev, "batched_host_us": bhost,
+                    "batched_device_ops": bops,
+                    "batched_shape": list(gb.tw_word.shape)})
+    log(f"[kernel] weighted_bincount_batched: exact per row; "
+        f"{out[-1]['batched_ms']:.5g} ms (device {bdev} ms: {bops}; host "
+        f"{bhost} us a call); ids "
+        f"{list(gb.tw_word.shape)} {gb.tw_word.dtype}, nbins {gb.V_pad}")
 
     # 5. the row sums of the single corpus's in-edge plan
     ga, sw = single
@@ -638,7 +739,7 @@ def kernel_phase(gb, sub, single, dev):
     check(torch.equal(bag(), want), "embedding_bag yardstick disagrees")
     record("ell_row_sums", "row_sums.cu",
            "src/repro/kernels/propagate.py:84", (got,), (want,),
-           time_ms(lambda: ops.ell_row_sums(*rargs), dev),
+           lambda: ops.ell_row_sums(*rargs),
            time_ms(lambda: ref.ell_row_sums_ref(*rargs), dev),
            # all of freq, src of the real edges, each gathered weight once,
            # the output once; one multiply-add per real edge

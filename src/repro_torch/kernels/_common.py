@@ -259,5 +259,7 @@ def check_launch(err: int, name: str) -> None:
 
 
 def stream_ptr(dev: torch.device) -> int:
-    """The raw handle of PyTorch's current stream on ``dev``."""
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The raw handle of PyTorch's current stream on ``dev``, a CUDA tensor's
+    device (read through the binding PyTorch's own generated code uses,
+    which skips building a Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)

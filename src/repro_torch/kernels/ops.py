@@ -54,12 +54,20 @@ ELL_PLAN_MAX_ENTRIES = 1 << 27
 ELL_FUSED_MAX_RULES = 1 << 18
 
 
+_DISPATCH = {}
+
+
 def _count_dispatch(decision: str, path: str) -> None:
-    """Meter one dispatch decision on the process registry."""
-    global_registry().counter(
-        "repro_kernel_dispatch_total",
-        "kernel dispatch decisions at plan/call time",
-        ("decision", "path")).labels(decision, path).inc()
+    """Meter one dispatch decision on the process registry (the labelled
+    child is looked up once per (decision, path) and kept)."""
+    child = _DISPATCH.get((decision, path))
+    if child is None:
+        child = global_registry().counter(
+            "repro_kernel_dispatch_total",
+            "kernel dispatch decisions at plan/call time",
+            ("decision", "path")).labels(decision, path)
+        _DISPATCH[(decision, path)] = child
+    child.inc()
 
 
 def _exec_path(t: torch.Tensor) -> str:
@@ -101,6 +109,21 @@ def ell_vector_plan_ok(n: int, rows: int, k: int, f: int) -> bool:
     return n * rows * k * max(f, 1) <= ELL_PLAN_MAX_ENTRIES
 
 
+def _histogram_inputs(ids: torch.Tensor, vals: torch.Tensor):
+    """ids (int32 or int64) and float32 values as the kernel takes them,
+    converted only where they are not already (each conversion is a
+    launch)."""
+    if ids.dtype not in (torch.int32, torch.int64):
+        ids = ids.to(torch.int32)
+    if vals.dtype is not torch.float32:
+        vals = vals.to(torch.float32)
+    if not ids.is_contiguous():
+        ids = ids.contiguous()
+    if not vals.is_contiguous():
+        vals = vals.contiguous()
+    return ids, vals
+
+
 def weighted_bincount(ids: torch.Tensor, vals: torch.Tensor,
                       nbins: int) -> torch.Tensor:
     """Histogram: out[b] = sum(vals[ids == b]); ids outside [0, nbins)
@@ -112,18 +135,20 @@ def weighted_bincount(ids: torch.Tensor, vals: torch.Tensor,
         return torch.zeros(nbins, dtype=torch.float32, device=ids.device)
     if not _common.on_cuda(ids):
         return ref.weighted_bincount_ref(ids, vals, nbins)
-    return weighted_bincount_cuda(ids.to(torch.int32).contiguous(),
-                                  vals.to(torch.float32).contiguous(), nbins)
+    return weighted_bincount_cuda(*_histogram_inputs(ids, vals), nbins)
 
 
 def weighted_bincount_batched(ids: torch.Tensor, vals: torch.Tensor,
                               nbins: int) -> torch.Tensor:
-    """Batched histogram: out[i, b] = sum(vals[i][ids[i] == b]).
+    """Batched histogram: out[i, b] = sum(vals[i][ids[i] == b]); ids
+    outside ``[0, nbins)`` are padding.
 
-    Rows are fused into one launch by offsetting row i's ids into the
-    disjoint bin range ``[i * nbins, (i+1) * nbins)``; ids outside
-    ``[0, nbins)`` stay padding.  Huge vocabularies are processed in row
-    chunks of ``bincount_batch_rows(n, nbins)``.
+    CUDA tensors make one kernel launch per row chunk, each writing its
+    rows of one output (the kernel has a batch axis); the JAX package
+    instead offsets row i's ids into the flat bin range ``[i * nbins,
+    (i+1) * nbins)`` and histograms the flattened stream.  The row chunks
+    of ``bincount_batch_rows(n, nbins)`` are kept on both paths for parity
+    with it.
     """
     if ids.ndim != 2 or vals.shape != ids.shape:
         raise ValueError(f"expected matching [N, T] inputs, got "
@@ -132,21 +157,19 @@ def weighted_bincount_batched(ids: torch.Tensor, vals: torch.Tensor,
     if n == 0 or t == 0:
         return torch.zeros((n, nbins), dtype=torch.float32,
                            device=ids.device)
-
-    def flat_chunk(ids_c: torch.Tensor, vals_c: torch.Tensor):
-        rows = ids_c.shape[0]
-        valid = (ids_c >= 0) & (ids_c < nbins)
-        offs = (torch.arange(rows, dtype=ids_c.dtype, device=ids_c.device)
-                * nbins)[:, None]
-        flat_ids = torch.where(valid, ids_c + offs, -1).reshape(-1)
-        flat = weighted_bincount(flat_ids, vals_c.reshape(-1), rows * nbins)
-        return flat.reshape(rows, nbins)
-
     rows = bincount_batch_rows(n, nbins)
+    if not _common.on_cuda(ids):
+        return torch.cat([ref.weighted_bincount_ref(ids[s: s + rows],
+                                                    vals[s: s + rows], nbins)
+                          for s in range(0, n, rows)], dim=0)
+    ids, vals = _histogram_inputs(ids, vals)
     if rows >= n:
-        return flat_chunk(ids, vals)
-    return torch.cat([flat_chunk(ids[s: s + rows], vals[s: s + rows])
-                      for s in range(0, n, rows)], dim=0)
+        return weighted_bincount_cuda(ids, vals, nbins)
+    out = torch.empty((n, nbins), dtype=torch.float32, device=ids.device)
+    for s in range(0, n, rows):
+        weighted_bincount_cuda(ids[s: s + rows], vals[s: s + rows], nbins,
+                               out=out[s: s + rows])
+    return out
 
 
 def ell_row_sums(weights: torch.Tensor, src: torch.Tensor,

@@ -8,9 +8,11 @@ traversals:
                                        * active[n, src[n, r, k]]
   seen[n, r]     = sum_k [freq[n, r, k] > 0] * active[n, src[n, r, k]]
 
-The kernel is ``csrc/propagate_vector.cu``: F is the coalesced axis (design
-and bound in its header).  Root-edge exclusion stays the caller's job, via
-the active mask, as in the JAX package.  The plain version is
+The kernel is ``csrc/propagate_vector.cu``: a warp per plan row (or per
+few rows when K is small), the row's live, active entries compacted with
+warp ballots and gathered with lanes over F (design and bound in its
+header).  Root-edge exclusion stays the caller's job, via the active mask,
+as in the JAX package.  The plain version is
 ``ref.ell_propagate_vector_ref``.
 """
 
@@ -24,7 +26,7 @@ from . import _common
 
 launches = _common.launch_counter("ell_propagate_vector")
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
 
 def ell_propagate_vector_cuda(W: torch.Tensor, active: torch.Tensor,
@@ -33,7 +35,7 @@ def ell_propagate_vector_cuda(W: torch.Tensor, active: torch.Tensor,
 
     W: [N, R, F] float32; active: [N, R] float32; src: [N, rows, K] int32
     with every entry in [0, R); freq: [N, rows, K] float32 — all
-    contiguous, on one CUDA device.
+    contiguous, on one CUDA device, with N * rows < 2^31.
     """
     n, rows, k = src.shape
     R, F = W.shape[1], W.shape[2]
@@ -43,13 +45,22 @@ def ell_propagate_vector_cuda(W: torch.Tensor, active: torch.Tensor,
     _common.check_cuda_tensor("active", active, torch.float32, (n, R), dev)
     _common.check_cuda_tensor("src", src, torch.int32, (n, rows, k), dev)
     _common.check_cuda_tensor("freq", freq, torch.float32, (n, rows, k), dev)
+    if n * rows >= 1 << 31:
+        raise ValueError(f"ell_propagate_vector takes N * rows < 2^31, got "
+                         f"{n} x {rows}")
     delta = torch.empty((n, rows, F), dtype=torch.float32, device=dev)
     seen = torch.empty((n, rows), dtype=torch.float32, device=dev)
-    fl = min(256, _common.round_up_pow2(F))     # threads over f per row
+    # 16-byte loads where rows and pointers allow: freq 8 entries a lane
+    # (two loads), W rows 4 columns a lane
+    w_ptr, q_ptr = W.data_ptr(), freq.data_ptr()
+    epl = 8 if k % 8 == 0 and q_ptr % 16 == 0 else 1
+    vw = int(F % 4 == 0 and w_ptr % 16 == 0)
+    lanes_row = min(32, _common.round_up_pow2(-(-k // epl)))
+    lanes_entry = min(32, _common.round_up_pow2(-(-F // (4 if vw else 1))))
     fn = _common.kernel_fn("repro_ell_propagate_vector", _ARGTYPES)
-    err = fn(W.data_ptr(), active.data_ptr(), src.data_ptr(),
-             freq.data_ptr(), delta.data_ptr(), seen.data_ptr(),
-             n, R, rows, k, F, fl, _common.stream_ptr(dev))
+    err = fn(w_ptr, active.data_ptr(), src.data_ptr(), q_ptr,
+             delta.data_ptr(), seen.data_ptr(), n, R, rows, k, F, lanes_row,
+             lanes_entry, epl, vw, _common.stream_ptr(dev))
     _common.check_launch(err, "ell_propagate_vector")
     launches.inc()
     return delta, seen

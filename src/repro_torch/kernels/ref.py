@@ -14,13 +14,22 @@ import torch
 
 def weighted_bincount_ref(ids: torch.Tensor, vals: torch.Tensor,
                           nbins: int) -> torch.Tensor:
-    """out[b] = sum(vals[ids == b]); ids outside [0, nbins) ignored."""
+    """out[b] = sum(vals[ids == b]); ids outside [0, nbins) ignored.
+
+    ``[rows, T]`` inputs give ``[rows, nbins]``, one histogram a row (the
+    batch axis of the kernel): row i's ids are offset into the disjoint
+    bin range ``[i * nbins, (i + 1) * nbins)`` of one flat histogram.
+    """
     ids = ids.to(torch.int64)
     valid = (ids >= 0) & (ids < nbins)
+    rows = ids.shape[0] if ids.ndim == 2 else 1
+    if ids.ndim == 2:
+        ids = ids + (torch.arange(rows, device=ids.device) * nbins)[:, None]
     safe = torch.where(valid, ids, 0)
     v = torch.where(valid, vals.to(torch.float32), 0.0)
-    out = torch.zeros(nbins, dtype=torch.float32, device=ids.device)
-    return out.index_add_(0, safe, v)
+    out = torch.zeros(rows * nbins, dtype=torch.float32, device=ids.device)
+    out.index_add_(0, safe.reshape(-1), v.reshape(-1))
+    return out if ids.ndim == 1 else out.view(rows, nbins)
 
 
 def ell_row_sums_ref(weights: torch.Tensor, src: torch.Tensor,

@@ -38,14 +38,93 @@ def vector_inputs(rng, n: int, R: int, k: int, F: int,
     return W, a, src, freq
 
 
-def bincount_inputs(rng, n: int, nbins: int, integer: bool = True):
-    """(ids [n] int32 with ~10% out of range, vals [n] float32)."""
-    ids = rng.integers(-2, nbins + 2, n).astype(np.int32)
-    if integer:
-        vals = rng.integers(0, 50, n).astype(np.float32)
+#: Id distributions of :func:`bincount_inputs` beyond the uniform one.
+BINCOUNT_CASES = ("zipf", "padding_rows", "out_of_range")
+
+
+def bincount_inputs(rng, n: int, nbins: int, integer: bool = True,
+                    case: str = "uniform", rows: int = 0):
+    """(ids int32 with ~10% out of range, vals float32), [n] — or
+    [rows, n] where ``rows`` is given.  ``case``:
+
+    - ``uniform``: ids uniform over [-2, nbins + 2);
+    - ``zipf``: Zipf-skewed ids (a few hot bins take most entries, as the
+      engine's word tables do), ~10% of them -1 padding;
+    - ``padding_rows``: ``zipf``, with every other row (or, in 1-D, the
+      second half) all -1 padding and a tenth of the values zero;
+    - ``out_of_range``: ids from -3 to 2 * nbins, so many are >= nbins.
+    """
+    shape = (rows, n) if rows else (n,)
+    if case == "uniform":
+        ids = rng.integers(-2, nbins + 2, shape)
+    elif case in ("zipf", "padding_rows"):
+        ids = (rng.zipf(1.3, shape) - 1) % nbins
+        ids[rng.random(shape) < 0.1] = -1
+        if case == "padding_rows":
+            if rows:
+                ids[1::2] = -1
+            else:
+                ids[n // 2:] = -1
+    elif case == "out_of_range":
+        ids = rng.integers(-3, 2 * nbins, shape)
     else:
-        vals = rng.normal(size=n).astype(np.float32)
-    return ids, vals
+        raise ValueError(f"unknown bincount case {case!r}")
+    if integer:
+        vals = rng.integers(0, 50, shape).astype(np.float32)
+    else:
+        vals = rng.normal(size=shape).astype(np.float32)
+    if case == "padding_rows":
+        vals[rng.random(shape) < 0.1] = 0.0
+    return ids.astype(np.int32), vals
+
+
+#: Vector-round plans of :func:`vector_case`.
+VECTOR_CASES = ("wide_interleaved", "long_rows", "hot_sources",
+                "all_inactive")
+
+
+def vector_case(rng, case: str, n: int, R: int, k: int, F: int,
+                integer: bool = True):
+    """(W [n, R, F], active [n, R], src [n, R, k], freq) of one vector
+    round on a wide plan, like the engine's (K=128 with 1-4 real entries a
+    row), whose real entries sit at random positions among the padding:
+
+    - ``wide_interleaved``: 0-4 real entries a row;
+    - ``long_rows``: as above, and a tenth of the rows with 33 to 3k/4
+      real entries (more than one warp's ballot);
+    - ``hot_sources``: half the real entries point at one of three hot
+      sources, shared by many rows;
+    - ``all_inactive``: as ``wide_interleaved`` with every source inactive.
+
+    ``active`` is 0, 1/4, 1/2 or 1 (fractional, yet every sum exact);
+    ``freq`` 1-3 on real entries; padding has a random in-range ``src``.
+    """
+    if case not in VECTOR_CASES:
+        raise ValueError(f"unknown vector case {case!r}")
+    live = rng.integers(0, 5, (n, R))
+    if case == "long_rows":
+        hit = rng.random((n, R)) < 0.1
+        live[hit] = rng.integers(33, max(34, 3 * k // 4) + 1, int(hit.sum()))
+    live = np.minimum(live, k)
+    # the live entries of a row: its `live` smallest random keys
+    keys = rng.random((n, R, k))
+    kth = np.sort(keys, axis=-1)
+    thr = np.take_along_axis(kth, np.maximum(live - 1, 0)[..., None], -1)
+    real = (keys <= thr) & (live[..., None] > 0)
+    freq = np.where(real, rng.integers(1, 4, (n, R, k)), 0).astype(np.float32)
+    src = rng.integers(0, R, (n, R, k)).astype(np.int32)
+    if case == "hot_sources":
+        hot = real & (rng.random((n, R, k)) < 0.5)
+        src[hot] = rng.integers(0, min(3, R), int(hot.sum()))
+    active = rng.choice(np.array([0.0, 0.0, 0.25, 0.5, 1.0], np.float32),
+                        (n, R))
+    if case == "all_inactive":
+        active[:] = 0.0
+    if integer:
+        W = rng.integers(0, 5, (n, R, F)).astype(np.float32)
+    else:
+        W = rng.normal(size=(n, R, F)).astype(np.float32)
+    return W, active.astype(np.float32), src, freq
 
 
 def _dag(rng, R: int, k: int, parents):

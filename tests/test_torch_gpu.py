@@ -28,7 +28,7 @@ from repro_torch.kernels.propagate_batched import ell_propagate_batched_cuda
 
 from _torch_inputs import (FUSED_CASES, batch_dags, bincount_inputs,
                            fused_case, plan_inputs, ragged_corpora,
-                           vector_inputs)
+                           vector_case, vector_inputs)
 
 torch.set_num_threads(1)
 
@@ -95,6 +95,84 @@ def test_propagate_vector_on_card(cuda, R, k, F, n, integer, seeded_rng):
         _within_sum_bound(got[0], want[0], torch.full_like(abs_sum, k),
                           abs_sum)
         _same(got[1:], want[1:])
+
+
+def _misaligned(dev, *arrays):
+    """The arrays on ``dev`` as contiguous views that start one element
+    into their storage, so no 16-byte load fits their rows."""
+    out = []
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        buf = torch.empty(a.size + 1, dtype=torch.from_numpy(a).dtype,
+                          device=dev)
+        view = buf[1:].view(a.shape)
+        view.copy_(torch.from_numpy(a))
+        assert view.storage_offset() == 1 and view.is_contiguous()
+        out.append(view)
+    return out
+
+
+def _vector_check(got, args, integer):
+    want = ref.ell_propagate_vector_ref(*args)
+    if integer:
+        _same(got, want)
+    else:
+        W, a, src, freq = args
+        abs_sum, _ = ref.ell_propagate_vector_ref(W.abs(), a, src,
+                                                   freq.abs())
+        terms = (freq != 0).sum(-1, keepdim=True).expand_as(abs_sum)
+        _within_sum_bound(got[0], want[0], terms, abs_sum)
+        _same(got[1:], want[1:])       # dyadic active: exact in any order
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("case,n,R,k,F", [
+    ("wide_interleaved", 4, 4096, 128, 16), ("long_rows", 2, 1500, 512, 4),
+    ("hot_sources", 3, 2000, 128, 17), ("all_inactive", 2, 900, 128, 33),
+    ("wide_interleaved", 1, 600, 512, 300), ("long_rows", 2, 700, 128, 1),
+    ("hot_sources", 2, 333, 12, 64), ("wide_interleaved", 5, 777, 4, 16)])
+def test_propagate_vector_cases_on_card(cuda, case, n, R, k, F, integer,
+                                        seeded_rng):
+    """Wide plans with the real entries among the padding (K=128, 512),
+    rows of more than 32 real entries, hot sources, an all-inactive round,
+    narrow plans that share a warp between rows (K=4, 12), and F in {1, 4,
+    16, 17, 33, 64, 300}."""
+    args = _on(cuda, *vector_case(seeded_rng, case, n, R, k, F, integer))
+    _vector_check(ops.ell_propagate_vector(*args), args, integer)
+
+
+@pytest.mark.parametrize("k,F", [(128, 16), (12, 4), (5, 17)])
+def test_propagate_vector_misaligned_views_on_card(cuda, k, F, seeded_rng):
+    """Inputs that are views one element into their storage take the
+    scalar loads, and give what aligned inputs give."""
+    inputs = vector_case(seeded_rng, "long_rows", 2, 500, k, F)
+    aligned = _on(cuda, *inputs)
+    shifted = _misaligned(cuda, *inputs)
+    got = ops.ell_propagate_vector(*shifted)
+    _vector_check(got, shifted, True)
+    _same(got, ops.ell_propagate_vector(*aligned))
+
+
+def test_propagate_vector_back_to_back_on_card(cuda, seeded_rng):
+    """A call whose outputs land in memory that held NaNs writes every
+    element (rows without a live, active entry too), and calls in a row on
+    one stream carry nothing over."""
+    a = _on(cuda, *vector_case(seeded_rng, "wide_interleaved", 4, 2048,
+                               128, 16))
+    b = _on(cuda, *vector_case(seeded_rng, "all_inactive", 4, 2048, 128,
+                               16))
+    numel = 4 * 2048 * 17
+    stale = torch.full((numel,), float("nan"), device=cuda)
+    ptr = stale.data_ptr()
+    del stale
+    first = ops.ell_propagate_vector(*a)
+    assert first[0].data_ptr() == ptr          # the NaN block, reused
+    second = ops.ell_propagate_vector(*b)
+    again = ops.ell_propagate_vector(*a)
+    torch.cuda.synchronize()
+    _vector_check(first, a, True)
+    _vector_check(second, b, True)
+    _same(again, first)
 
 
 @pytest.mark.parametrize("R,max_deg,n", [(40, 3, 1), (1300, 40, 3),
@@ -172,10 +250,18 @@ def test_frontier_fused_grid_covers_every_sm(cuda, seeded_rng):
 
 
 @pytest.mark.parametrize("integer", [True, False])
-@pytest.mark.parametrize("n,nbins", [(700, 300), (5, 3), (100000, 1030)])
-def test_bincount_on_card(cuda, n, nbins, integer, seeded_rng):
-    ids, vals = _on(cuda, *bincount_inputs(seeded_rng, n, nbins, integer))
+@pytest.mark.parametrize("n,nbins,case", [
+    (700, 300, "uniform"), (5, 3, "uniform"), (100000, 1030, "uniform"),
+    (100001, 300, "zipf"), (4099, 2000, "padding_rows"),
+    (37, 8, "out_of_range")])
+def test_bincount_on_card(cuda, n, nbins, case, integer, seeded_rng):
+    ids, vals = _on(cuda, *bincount_inputs(seeded_rng, n, nbins, integer,
+                                           case))
     got = ops.weighted_bincount(ids, vals, nbins)
+    _bincount_check(got, ids, vals, nbins, integer)
+
+
+def _bincount_check(got, ids, vals, nbins, integer):
     want = ref.weighted_bincount_ref(ids, vals, nbins)
     if integer:
         _same([got], [want])
@@ -183,6 +269,83 @@ def test_bincount_on_card(cuda, n, nbins, integer, seeded_rng):
         terms = ref.weighted_bincount_ref(ids, torch.ones_like(vals), nbins)
         _within_sum_bound(got, want, terms,
                           ref.weighted_bincount_ref(ids, vals.abs(), nbins))
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("rows,t,nbins,case", [
+    (16, 16384, 32768, "zipf"), (6, 1001, 300, "padding_rows"),
+    (9, 1001, 1 << 19, "zipf"), (7, 203, 61, "out_of_range"),
+    (3, 50, 40, "uniform")])
+def test_bincount_batched_on_card(cuda, rows, t, nbins, case, id_dtype,
+                                  integer, seeded_rng):
+    """ops.weighted_bincount_batched on the card equals the plain version
+    row by row, for int32 and the engine's int64 ids, across the row-chunk
+    crossover (9 x 2^19 bins is two chunks)."""
+    ids, vals = _on(cuda, *bincount_inputs(seeded_rng, t, nbins, integer,
+                                           case, rows=rows))
+    ids = ids.to(id_dtype)
+    got = ops.weighted_bincount_batched(ids, vals, nbins)
+    assert got.shape == (rows, nbins)
+    for i in range(rows):
+        _bincount_check(got[i], ids[i], vals[i], nbins, integer)
+
+
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_bincount_misaligned_views_on_card(cuda, id_dtype, seeded_rng):
+    """Ids and values one element into their storage (no 16-byte loads)
+    give what aligned inputs give, in 1-D and batched."""
+    ids, vals = bincount_inputs(seeded_rng, 1000, 700, True, "zipf", rows=5)
+    ids = ids.astype(np.int64 if id_dtype == torch.int64 else np.int32)
+    aligned = _on(cuda, ids, vals)
+    shifted = _misaligned(cuda, ids, vals)
+    _same([ops.weighted_bincount_batched(*shifted, 700)],
+          [ops.weighted_bincount_batched(*aligned, 700)])
+    flat = [x.reshape(-1) for x in shifted]
+    _bincount_check(ops.weighted_bincount(*flat, 700), *flat, 700, True)
+
+
+def test_bincount_reuses_one_output_on_card(cuda, seeded_rng):
+    """Back-to-back calls into one output allocation: each call zeroes it
+    on the stream before adding, so nothing of the previous call stays."""
+    a = _on(cuda, *bincount_inputs(seeded_rng, 5000, 900, True, "zipf",
+                                   rows=4))
+    b = _on(cuda, *bincount_inputs(seeded_rng, 5000, 900, True,
+                                   "padding_rows", rows=4))
+    out = torch.full((4, 900), float("nan"), device=cuda)
+    for ids, vals in (a, b, a):
+        got = weighted_bincount_cuda(ids, vals, 900, out=out)
+        assert got is out
+        torch.cuda.synchronize()
+        for i in range(4):
+            _bincount_check(out[i], ids[i], vals[i], 900, True)
+
+
+def test_bincount_batched_is_one_kernel_a_chunk_on_card(cuda, seeded_rng):
+    """The batched word count's call on the card: one histogram kernel and
+    one memset a row chunk, and no other device work (no id offsets, no
+    fill, no copy) — counted with the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    ids, vals = _on(cuda, *bincount_inputs(seeded_rng, 1001, 1 << 19, True,
+                                           "zipf", rows=9))
+    ids = ids.long()                         # the engine's word tables
+    chunks = -(-9 // ops.bincount_batch_rows(9, 1 << 19))
+    assert chunks == 2
+    ops.weighted_bincount_batched(ids, vals, 1 << 19)    # build, warm up
+    torch.cuda.synchronize()
+    before = _common.launch_counts()["weighted_bincount"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.weighted_bincount_batched(ids, vals, 1 << 19)
+        torch.cuda.synchronize()
+    assert _common.launch_counts()["weighted_bincount"] == before + chunks
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    kernels = [x for x in names if "memset" not in x.lower()]
+    memsets = [x for x in names if "memset" in x.lower()]
+    assert len(kernels) == chunks, names
+    assert all("weighted_bincount_kernel" in x for x in kernels), names
+    assert len(memsets) == chunks, names
 
 
 def _row_sums_inputs(rng, rows, k, R, integer):
@@ -247,6 +410,14 @@ def test_wrappers_reject_bad_inputs_on_card(cuda):
     with pytest.raises(ValueError, match="expected cuda"):
         weighted_bincount_cuda(torch.zeros(3, dtype=torch.int32, device=cuda),
                                torch.zeros(3), 4)
+    with pytest.raises(TypeError, match="dtype"):
+        weighted_bincount_cuda(torch.zeros(3, dtype=torch.int16, device=cuda),
+                               torch.zeros(3, device=cuda), 4)
+    with pytest.raises(ValueError, match="shape"):
+        weighted_bincount_cuda(torch.zeros((2, 3), dtype=torch.int32,
+                                           device=cuda),
+                               torch.zeros((2, 3), device=cuda), 4,
+                               out=torch.zeros((2, 5), device=cuda))
 
 
 def test_engine_on_card_matches_cpu(cuda):

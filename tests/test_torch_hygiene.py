@@ -36,7 +36,7 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "tools" / "kernel_ab.py"]
 KERNEL_MODULES = (bincount, propagate, propagate_batched, propagate_fused,
                   propagate_vector)
 

@@ -6,7 +6,9 @@ package twice: its jnp reference (``repro.kernels.ref``) and its Pallas
 kernel in interpret mode.  Integer-valued inputs — every value on the
 engine path — must match exactly; arbitrary floats are summed in another
 order, so they get rtol=atol=1e-6 (rtol=1e-5 / atol=1e-4 for the row sums,
-the tolerance of the JAX package's own tests of that kernel).  The CUDA
+the tolerance of the JAX package's own tests of that kernel), and the
+vector round's wide plans, whose rows sum up to hundreds of terms, the
+float32 bound of an m-term sum in any order.  The CUDA
 kernels themselves run only on the card (tests/test_torch_gpu.py).
 """
 
@@ -25,11 +27,12 @@ from repro.kernels.propagate_vector import ell_propagate_vector_pallas
 from repro_torch.kernels import _common, ops, ref
 
 from _torch_inputs import (batch_dags, bincount_inputs, fused_case,
-                           plan_inputs, vector_inputs)
+                           plan_inputs, vector_case, vector_inputs)
 
 torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
+EPS = float(np.finfo(np.float32).eps)
 ROW_SUMS_TOL = dict(rtol=1e-5, atol=1e-4)
 
 
@@ -52,9 +55,15 @@ def _check(got, want, integer: bool, tol=TOL):
 
 # ------------------------------------------------------------ bincount --
 @pytest.mark.parametrize("integer", [True, False])
-@pytest.mark.parametrize("n,nbins", [(700, 300), (64, 8), (1500, 1030)])
-def test_bincount_matches_jax(n, nbins, integer, seeded_rng):
-    ids, vals = bincount_inputs(seeded_rng, n, nbins, integer)
+@pytest.mark.parametrize("n,nbins,case", [
+    (700, 300, "uniform"), (64, 8, "uniform"), (1500, 1030, "uniform"),
+    (1001, 300, "zipf"), (1003, 517, "padding_rows"),
+    (37, 8, "out_of_range")])
+def test_bincount_matches_jax(n, nbins, case, integer, seeded_rng):
+    """Uniform ids, Zipf-skewed ids with hot bins, a half made only of
+    padding with zero values, and ids >= nbins or < 0 (n not a multiple
+    of 4)."""
+    ids, vals = bincount_inputs(seeded_rng, n, nbins, integer, case)
     got = ref.weighted_bincount_ref(*_t(ids, vals), nbins)
     _check(got, jref.weighted_bincount_ref(*_j(ids, vals), nbins), integer)
     _check(got, weighted_bincount_pallas(*_j(ids, vals), nbins,
@@ -63,14 +72,30 @@ def test_bincount_matches_jax(n, nbins, integer, seeded_rng):
            jops.weighted_bincount(*_j(ids, vals), nbins), integer)
 
 
-@pytest.mark.parametrize("n,t,nbins", [(3, 50, 40), (5, 200, 1 << 20)])
-def test_bincount_batched_matches_jax(n, t, nbins, seeded_rng):
-    """Flat-offset batching, including the row-chunked crossover above
-    BINCOUNT_BATCH_FLAT_LIMIT (5 rows x 2^20 bins)."""
-    ids = seeded_rng.integers(-1, min(nbins, 500), (n, t)).astype(np.int32)
-    vals = seeded_rng.integers(0, 9, (n, t)).astype(np.float32)
-    got = ops.weighted_bincount_batched(*_t(ids, vals), nbins)
-    _check(got, jops.weighted_bincount_batched(*_j(ids, vals), nbins), True)
+@pytest.mark.parametrize("n,t,nbins,case", [
+    (3, 50, 40, "uniform"), (5, 200, 1 << 20, "uniform"),
+    (6, 1001, 300, "zipf"), (4, 37, 1 << 20, "padding_rows"),
+    (9, 1001, 1 << 19, "zipf"), (7, 203, 61, "out_of_range")])
+def test_bincount_batched_matches_jax(n, t, nbins, case, seeded_rng):
+    """The batch across the row-chunk crossover above
+    BINCOUNT_BATCH_FLAT_LIMIT (4 x 2^20 bins is one chunk, 5 x 2^20 and
+    9 x 2^19 are not), Zipf-skewed ids, rows made only of padding, and ids
+    out of range: the wrapper, and the plain version's one-call batch
+    form, equal the JAX package's flat-offset batching and its per-row
+    reference."""
+    if case == "uniform":
+        ids = seeded_rng.integers(-1, min(nbins, 500), (n, t)).astype(
+            np.int32)
+        vals = seeded_rng.integers(0, 9, (n, t)).astype(np.float32)
+    else:
+        ids, vals = bincount_inputs(seeded_rng, t, nbins, True, case, rows=n)
+    want = jops.weighted_bincount_batched(*_j(ids, vals), nbins)
+    _check(ops.weighted_bincount_batched(*_t(ids, vals), nbins), want, True)
+    one_call = ref.weighted_bincount_ref(*_t(ids, vals), nbins)
+    _check(one_call, want, True)
+    for i in range(n):
+        _check(one_call[i], jref.weighted_bincount_ref(*_j(ids[i], vals[i]),
+                                                       nbins), True)
 
 
 def test_bincount_empty_and_bad_shapes():
@@ -164,6 +189,40 @@ def test_propagate_vector_matches_jax(R, k, F, n, integer, seeded_rng):
     od, os_ = ops.ell_propagate_vector(*_t(*inputs))
     _check(od, d, True)
     _check(os_, s, True)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("case,n,R,k,F", [
+    ("wide_interleaved", 2, 96, 128, 16), ("long_rows", 1, 80, 512, 4),
+    ("hot_sources", 2, 70, 128, 17), ("all_inactive", 1, 64, 128, 33),
+    ("wide_interleaved", 1, 64, 512, 300), ("long_rows", 1, 64, 128, 1)])
+def test_propagate_vector_cases_match_jax(case, n, R, k, F, integer,
+                                          seeded_rng):
+    """Wide plans (K=128, 512) with the real entries among the padding,
+    rows of more than 32 real entries, hot sources shared by many rows, an
+    all-inactive round, fractional ``active`` and F in {1, 4, 16, 17, 33,
+    300}: the plain version equals the JAX reference and the
+    interpret-mode Pallas kernel."""
+    inputs = vector_case(seeded_rng, case, n, R, k, F, integer)
+    d, s = ops.ell_propagate_vector(*_t(*inputs))
+    jd, js = jref.ell_propagate_vector_ref(*_j(*inputs))
+    pd, ps = ell_propagate_vector_pallas(*_j(*inputs), interpret=True)
+    W, a, src, freq = inputs
+    # floats: rows of up to 3k/4 terms summed in another order are held
+    # to the float32 bound of an m-term sum in any order,
+    # 2 * m * eps * sum(|terms|), with m the row's real entries
+    abs_sum, _ = ref.ell_propagate_vector_ref(*_t(np.abs(W), a, src,
+                                                  np.abs(freq)))
+    m = torch.from_numpy((freq != 0).sum(-1, keepdims=True))
+    bound = (2 * m * EPS * abs_sum).numpy()
+    for want_d, want_s in ((jd, js), (pd, ps)):
+        if integer:
+            _check(d, want_d, True)
+        else:
+            assert (np.abs(d.numpy() - np.asarray(want_d)) <= bound).all()
+        _check(s, want_s, True)        # dyadic active: exact in any order
+    if case == "all_inactive":
+        assert not d.any() and not s.any()
 
 
 def test_propagate_vector_validation_and_empty():
