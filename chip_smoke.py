@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's analytics engines once on one NVIDIA H100.
+"""Drive the PyTorch port's analytics engines and its analytics server once
+on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -34,7 +35,27 @@ CUDA toolkit.  Phases:
       with the memoized weights recomputed, window reads, save/load.
    Every analytic is checked exactly against a numpy decompress-then-scan
    oracle built from the raw token files.
-4. Kernels: each kernel at the main path's shapes against its plain torch
+4. Serving (the path users call), with launch counts zeroed just before
+   and read just after: one ``AnalyticsServer(max_batch=16)`` on the card
+   per method (``frontier``, ``frontier_ell``, ``frontier_fused``) holds
+   the pack's 16 corpora and the subset's 4 as ``GrammarArrays`` and the
+   single corpus as its ``CompressedCorpus``; every corpus is asked all 11
+   served kinds — the six analytics, BM25 and TF-IDF top-10 over two
+   three-term queries (an out-of-vocabulary term; a term so rare that
+   zero-score ties reach the top 10), an and/or filter, sum and max
+   aggregations, and two phrases (the first three words of one of the
+   generator's repeated phrases, and one that never occurs);
+   ``sequence_count`` and ``phrase_count`` under ``frontier`` only (host
+   sequence planning).  Each corpus set's queries of one kind go through
+   ``run`` six times: every answer exact against the raw-file oracle, each
+   repeat equal to the first, ``[serve]`` lines with the first call's and
+   the next five's median host-clock latency, and ``method_fallbacks``
+   held to the routing ``resolve_batch_method`` gives each chunk.  Then
+   the same queries go through ``AsyncAnalyticsServer`` from four threads
+   with deadlines: equal to the sync answers, nothing shed, flush reasons
+   printed.  Kernels 1, 2 and 3 must each launch here (``serve_launches``
+   in each record).
+5. Kernels: each kernel at the main path's shapes against its plain torch
    version on the same card inputs (exact equality: all values are
    integer-valued float32 below 2^24), timed with CUDA events around one
    wrapper call (``ms``, median of 20 runs after warm-up) beside its bound
@@ -87,6 +108,18 @@ INGEST_SHARE = 0.75
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+
+# the serving phase (phase 4)
+SERVE_METHODS = ("frontier", "frontier_ell", "frontier_fused")
+SERVE_K = 10
+SERVE_REPEATS = 5
+SERVE_THREADS = 4
+# async queue: idle flush after SERVE_IDLE s, deadlines SERVE_DEADLINE s out
+SERVE_IDLE = 1.0
+SERVE_DEADLINE = 600.0
+# the kernels the serving path must launch
+SERVE_KERNELS = ("ell_propagate_batched", "ell_frontier_fused",
+                 "ell_propagate_vector")
 
 TIMING_REPS = 20
 TIMING_WARMUP = 3
@@ -403,7 +436,288 @@ def single_phase(files, vocab: int, dev):
     check(loaded.epoch == 1, "[single] load lost the epoch")
     assert_corpus_equal(loaded, grown, "[single] save/load")
     log("[single] save/load round-trips every field and the epoch")
-    return ga, w
+    return (ga, w), cc, want
+
+
+# ----------------------------------------------------------------------- #
+# Serving (phase 4): the analytics server, sync and async                 #
+# ----------------------------------------------------------------------- #
+# BM25 constants, float32, and the scoring in the engine's operation order
+K1, B = np.float32(1.2), np.float32(0.75)
+ONE, HALF = np.float32(1.0), np.float32(0.5)
+
+
+def search_oracle(tv, terms, k: int, scheme: str):
+    """BM25 / TF-IDF top-k of one corpus from its raw-file term vector
+    ``tv [F, V]``: (ids int32, scores float32), ties toward the lower file
+    id (a stable argsort)."""
+    F, V = tv.shape
+    dl = tv.sum(axis=1, dtype=np.float32)
+    df = (tv > 0).sum(axis=0).astype(np.float32)
+    n = np.float32(F)
+    avgdl = np.float32(dl.sum(dtype=np.float32)) / np.float32(max(F, 1))
+    if not avgdl > 0:
+        avgdl = ONE
+    norm = (K1 * (ONE - B + B * (dl / np.float32(avgdl)))).astype(np.float32)
+    t = np.asarray(terms, np.int64)
+    ok = (t >= 0) & (t < V)
+    tf_q = np.zeros((F, len(t)), np.float32)
+    tf_q[:, ok] = tv[:, t[ok]]
+    df_q = np.zeros(len(t), np.float32)
+    df_q[ok] = df[t[ok]]
+    if scheme == "bm25":
+        idf = np.log(ONE + (n - df_q + HALF) / (df_q + HALF)).astype(
+            np.float32)
+        quot = (tf_q * (K1 + ONE)) / (tf_q + norm[:, None])
+    else:
+        idf = (np.log((n + ONE) / (df_q + ONE)) + ONE).astype(np.float32)
+        quot = tf_q
+    score = np.zeros(F, np.float32)
+    for j in range(len(t)):                 # term by term, as the engine
+        score = score + idf[j] * quot[:, j]
+    order = np.argsort(-score, kind="stable")[: min(int(k), F)]
+    return order.astype(np.int32), score[order]
+
+
+def filter_oracle(tv, pred) -> np.ndarray:
+    F, V = tv.shape
+
+    def ev(node):
+        if node[0] == "term":
+            _, t, c = node
+            cnt = tv[:, t] if t < V else np.zeros(F, np.float32)
+            return cnt >= np.float32(c)
+        masks = [ev(ch) for ch in node[1]]
+        out = masks[0]
+        for m in masks[1:]:
+            out = (out & m) if node[0] == "and" else (out | m)
+        return out
+
+    return np.flatnonzero(ev(pred)).astype(np.int32)
+
+
+def agg_oracle(tv, terms, op: str):
+    F, V = tv.shape
+    pf = np.zeros(F, np.float32)
+    for t in terms:
+        cnt = tv[:, t] if t < V else np.zeros(F, np.float32)
+        pf = pf + cnt if op == "sum" else np.maximum(pf, cnt)
+    total = (np.float32(pf.sum(dtype=np.float32)) if op == "sum"
+             else np.float32(pf.max()) if F else np.float32(0.0))
+    return pf, total
+
+
+def phrase_oracle(files, phrase) -> np.float32:
+    ph = np.asarray(phrase, np.int64)
+    count = 0
+    for f in files:
+        f = np.asarray(f, np.int64)
+        if len(f) >= len(ph):
+            wins = np.lib.stride_tricks.sliding_window_view(f, len(ph))
+            count += int((wins == ph[None, :]).all(axis=1).sum())
+    return np.float32(count)
+
+
+def serve_specs(sets, vocab: int):
+    """``[(kind, params)]`` every registered corpus is asked: the six
+    analytics, two three-term searches per scheme (k=10; one term out of
+    the vocabulary, and one so rare that zero-score ties reach the top
+    10), an and/or filter, sum and max aggregations, and two phrases: the
+    first three words of the generator's first repeated phrase and one
+    that never occurs."""
+    from repro_torch.data.synthetic import zipf_words
+    files = sets["pack"][0][2]
+    tv = sets["pack"][0][3]["term_vector"]
+    df = (tv > 0).sum(axis=0)
+    by_df = np.argsort(-df, kind="stable")
+    common, mid = int(by_df[0]), int(by_df[len(files) // 2])
+    rare = int(np.flatnonzero(df == 2)[0]) if (df == 2).any() else \
+        int(by_df[np.count_nonzero(df) - 1])
+    oov = vocab + 7
+    phrase = tuple(int(t) for t in zipf_words(np.random.default_rng(SEED),
+                                              PHRASE_LEN, vocab)[:3])
+    absent = (phrase[2], phrase[1], phrase[0])
+    if any(phrase_oracle(fs, absent) for name in sets
+           for _, _, fs, _ in sets[name]):
+        absent = (phrase[0], oov, phrase[1])
+    pred = ("or", (("and", (("term", common, 3), ("term", mid, 1))),
+                   ("term", rare, 1)))
+    specs = [(k, {}) for k in ("word_count", "sort", "term_vector",
+                               "inverted_index", "ranked_inverted_index")]
+    specs.append(("sequence_count", dict(l=SEQ_L)))
+    for kind in ("search_bm25", "search_tfidf"):
+        specs += [(kind, dict(terms=(common, rare, oov), k=SERVE_K)),
+                  (kind, dict(terms=(rare, oov, mid), k=SERVE_K))]
+    specs.append(("filter_count", dict(predicate=pred)))
+    specs += [("agg_terms", dict(terms=(common, mid, rare, oov), agg=op))
+              for op in ("sum", "max")]
+    specs += [("phrase_count", dict(terms=phrase)),
+              ("phrase_count", dict(terms=absent))]
+    log(f"[serve] terms: common {common} (df {int(df[common])} of "
+        f"{len(files)} files in p0), mid {mid} (df {int(df[mid])}), rare "
+        f"{rare} (df {int(df[rare])}), out of vocabulary {oov}; phrases "
+        f"{phrase} and {absent}")
+    return specs
+
+
+def serve_oracle(kind: str, params: dict, files, want):
+    """The raw-file answer to one query, shaped like the server's."""
+    tv = want["term_vector"]
+    if kind in want:
+        return want[kind]
+    if kind in ("search_bm25", "search_tfidf"):
+        return search_oracle(tv, params["terms"], params["k"],
+                             "bm25" if kind == "search_bm25" else "tfidf")
+    if kind == "filter_count":
+        return filter_oracle(tv, params["predicate"])
+    if kind == "agg_terms":
+        return agg_oracle(tv, params["terms"], params["agg"])
+    return phrase_oracle(files, params["terms"])
+
+
+def expected_fallbacks(srv, sets, kind: str, groups: int, counter) -> None:
+    """Count, as ``resolve_batch_method`` (or the single-corpus analogue)
+    routes each chunk, the explicit-ELL requests of one ``run`` of
+    ``kind`` that land on a segment_sum base — what
+    ``stats.method_fallbacks`` must show.  Each corpus set is one chunk of
+    each of the kind's ``groups`` groups."""
+    from repro_torch.core import (resolve_single_method,
+                                  resolve_traversal_method)
+    from repro_torch.core.batch import (PER_FILE_KINDS,
+                                        is_segment_sum_fallback)
+    from repro_torch.search.index import base_method
+    stats_kind = kind in ("search_bm25", "search_tfidf", "filter_count",
+                          "agg_terms")
+    per_file = kind in PER_FILE_KINDS or stats_kind
+    requested = base_method(srv.method) if stats_kind else srv.method
+    for name, members in sets.items():
+        if len(members) == 1:
+            resolved = resolve_single_method(members[0][1].ga, requested,
+                                             per_file=per_file)
+        else:
+            gas = [m[1] for m in members]
+            rows, k = plan_dims(gas)
+            f = max(1, 1 << (max(ga.num_files for ga in gas) - 1
+                             ).bit_length())
+            resolved = resolve_traversal_method(
+                requested, n=len(gas), rows=rows, k=k,
+                edges=sum(ga.num_edges for ga in gas), per_file=per_file,
+                f=f)
+        if is_segment_sum_fallback(requested, resolved):
+            counter[f"{requested}->{resolved}"] += groups
+
+
+def serve_phase(sets, vocab: int, dev) -> None:
+    """Phase 4: every corpus set registered on one ``AnalyticsServer`` per
+    method (the pack's corpora and the subset's as ``GrammarArrays``, the
+    single corpus as its ``CompressedCorpus``), every served kind asked of
+    every corpus through ``run`` — each answer exact against the raw-file
+    oracle, repeat calls timed and equal to the first — then the same
+    queries through ``AsyncAnalyticsServer`` from SERVE_THREADS threads,
+    equal to the sync answers with nothing shed."""
+    import collections
+    import threading
+    from repro_torch.serving import (AnalyticsServer, AsyncAnalyticsServer,
+                                     Query)
+    t_phase = time.perf_counter()
+    specs = serve_specs(sets, vocab)
+    kinds = list(dict.fromkeys(k for k, _ in specs))
+    for method in SERVE_METHODS:
+        srv = AnalyticsServer(max_batch=16, method=method, device=dev)
+        for members in sets.values():
+            for name, src, _, _ in members:
+                srv.register(name, src)
+        sync = {}
+        fallbacks = collections.Counter()
+        for kind in kinds:
+            if kind in ("sequence_count", "phrase_count") and \
+                    method != SERVE_METHODS[0]:
+                continue        # host sequence planning: one method only
+            lat = []
+            for set_name, members in sets.items():
+                qs = [(name, files, want, kw, Query(name, kind, **kw))
+                      for name, _, files, want in members
+                      for k2, kw in specs if k2 == kind]
+                times, first = [], None
+                for rep in range(1 + SERVE_REPEATS):
+                    t0 = time.perf_counter()
+                    res = srv.run([q for *_, q in qs])
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    if first is None:
+                        first = res
+                        for (name, files, want, kw, _), r in zip(qs, res):
+                            assert_same(to_tuple(r), serve_oracle(
+                                kind, kw, files, want),
+                                f"[serve] {method} {name} {kind} {kw}")
+                    else:
+                        for (name, *_), r, r0 in zip(qs, res, first):
+                            assert_same(to_tuple(r), to_tuple(r0),
+                                        f"[serve] {method} {name} {kind} "
+                                        f"repeat {rep}")
+                for (name, _, _, kw, q), r in zip(qs, first):
+                    sync[(name, kind, repr(kw))] = (q, r)
+                lat.append(f"{set_name} {times[0]:.1f}/"
+                           f"{statistics.median(times[1:]):.1f}")
+            groups = sum(1 for k2, _ in specs if k2 == kind)
+            expected_fallbacks(srv, sets, kind,
+                               groups * (1 + SERVE_REPEATS), fallbacks)
+            log(f"[serve] {method} {kind}: " + ", ".join(lat)
+                + " ms (first call / median of the next "
+                f"{SERVE_REPEATS}, host clock through run)")
+        got_fb = dict(srv.stats.method_fallbacks)
+        check(got_fb == dict(fallbacks),
+              f"[serve] {method}: method_fallbacks {got_fb} != the routing "
+              f"of resolve_batch_method {dict(fallbacks)}")
+        log(f"[serve] {method}: {len(sync)} distinct queries exact against "
+            f"the oracle; method_fallbacks {got_fb} as routed; stats "
+            f"{srv.stats}")
+
+        # the same queries through the async queue, from several threads
+        entries = list(sync.values())
+        aq = AsyncAnalyticsServer(srv, idle_timeout=SERVE_IDLE,
+                                  max_wait=10 * SERVE_IDLE).start()
+        futs = [None] * len(entries)
+        deadline = srv.clock() + SERVE_DEADLINE
+
+        def submit(w):
+            for j in range(w, len(entries), SERVE_THREADS):
+                futs[j] = aq.submit(entries[j][0], deadline=deadline)
+
+        t0 = time.perf_counter()
+        flushes0 = dict(srv.stats.flushes)
+        threads = [threading.Thread(target=submit, args=(w,))
+                   for w in range(SERVE_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=SERVE_DEADLINE)
+            check(not t.is_alive(), "[serve] a submitting thread hung")
+        # let the serve loop flush what is left (idle, max_wait) before
+        # the drain
+        t_wait = time.perf_counter()
+        while aq.queue_depth and \
+                time.perf_counter() - t_wait < 20 * SERVE_IDLE:
+            time.sleep(SERVE_IDLE / 10)
+        aq.drain()
+        aq.close()
+        for (q, r), f in zip(entries, futs):
+            assert_same(to_tuple(f.result(timeout=SERVE_DEADLINE)),
+                        to_tuple(r), f"[serve] async {method} {q.corpus} "
+                                     f"{q.kind}")
+        check(srv.stats.shed == 0, f"[serve] async shed {srv.stats.shed}")
+        reasons = {k: v - flushes0.get(k, 0)
+                   for k, v in dict(srv.stats.flushes).items()}
+        log(f"[serve] {method} async: {len(entries)} queries from "
+            f"{SERVE_THREADS} threads in "
+            f"{time.perf_counter() - t0:.1f} s == the sync answers, shed 0; "
+            f"flushes by reason {reasons}")
+        del srv, aq
+    log(f"[serve] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def to_tuple(r):
+    """A served answer with its lists made tuples (the oracle's shape)."""
+    return tuple(r) if isinstance(r, list) else r
 
 
 def time_ms(fn, dev) -> float:
@@ -754,7 +1068,7 @@ def kernel_phase(gb, sub, single, dev):
 def run(dev, n_corpora=N_CORPORA, n_files=N_FILES,
         tokens_per_file=TOKENS_PER_FILE, vocab=VOCAB,
         single_files=SINGLE_FILES):
-    """Phases 2-4 on ``dev``; returns the kernels' JSON records."""
+    """Phases 2-5 on ``dev``; returns the kernels' JSON records."""
     from repro_torch.core import GrammarBatch
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
@@ -789,14 +1103,26 @@ def run(dev, n_corpora=N_CORPORA, n_files=N_FILES,
     t0 = time.perf_counter()
     run_engine(gb, oracles, "pack")
     run_engine(sub, sub_oracles, "subset")
-    single = single_phase(sfiles, vocab, dev)
+    single, scc, swant = single_phase(sfiles, vocab, dev)
     counts = launch_counts()
     log(f"[engine] main path done in {time.perf_counter() - t0:.1f} s; "
         f"launches {counts}")
 
+    # the serving path: counts zeroed just before, read just after
+    sets = {"pack": [(f"p{i}", ga, files, o) for i, ((files, ga), o)
+                     in enumerate(zip(corpora, oracles))],
+            "subset": [(f"s{i}", ga, files, o) for i, ((files, ga), o)
+                       in enumerate(zip(sub_corpora, sub_oracles))],
+            "single": [("single", scc, sfiles, swant)]}
+    reset_launch_counts()
+    serve_phase(sets, vocab, dev)
+    serve_counts = launch_counts()
+    log(f"[serve] launches {serve_counts}")
+
     records = kernel_phase(gb, sub, single, dev)
     for r in records:
         r["launches"] = counts.get(r["name"], 0)
+        r["serve_launches"] = serve_counts.get(r["name"], 0)
     return records
 
 
@@ -830,6 +1156,12 @@ def main() -> int:
     if missing:
         print(f"chip_smoke: FAILED: the main path never launched {missing}",
               file=sys.stderr)
+        return 1
+    missing = [r["name"] for r in records if r["name"] in SERVE_KERNELS
+               and r["serve_launches"] <= 0]
+    if missing:
+        print(f"chip_smoke: FAILED: the serving path never launched "
+              f"{missing}", file=sys.stderr)
         return 1
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

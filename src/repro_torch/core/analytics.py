@@ -99,6 +99,10 @@ def term_vector(ga: GrammarArrays, method: str = "auto",
     Wf = _on(file_weights, dev, "file_weights")
     gb = device_pack(ga, dev)
     V, F = ga.vocab_size, Wf.shape[1]
+    if F == 0:
+        # nothing to count into (the pack's padding entries would scatter
+        # out of an empty table)
+        return torch.zeros((0, V), dtype=torch.float32, device=dev)
     contrib = Wf[gb.tw_rule[0]] * gb.tw_cnt[0, :, None]       # [T, F]
     tv = torch.zeros((V, F), dtype=torch.float32, device=dev)
     tv = tv.index_add_(0, gb.tw_word[0], contrib).T.contiguous()  # [F, V]

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from dataclasses import field as dataclass_field
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,7 +46,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels._common import resolve_device
 from repro_torch.obs import plan_stage as _plan_stage
 
-from .grammar import GrammarArrays, pow2_bucket as _pow2_bucket
+from .grammar import GrammarArrays, StaleGrammarError
+from .grammar import pow2_bucket as _pow2_bucket
 from . import sequence as _sequence
 from .sequence import _K_HEAD, _K_LIT, _K_TAIL
 
@@ -118,6 +119,15 @@ class GrammarBatch:
     lv_freq: torch.Tensor               # [N, EL] float32 (0 on padding)
     lv_slices: Tuple[Tuple[int, int], ...]   # shared (start, end) per level
 
+    # ingest-tier staleness guard: the source-corpus epoch of each packed
+    # row at pack time (None when the pack was built from bare immutable
+    # GrammarArrays with no mutable store behind them).  A pack snapshots
+    # its gas, so it (and every lazy plan on it) stays internally
+    # consistent, but serving it for a corpus whose store has since
+    # absorbed appended files would answer with pre-append data;
+    # check_epochs is the loud guard against that.
+    epochs: Optional[Tuple[int, ...]] = None
+
     # per-batch memo for host-side plans (keyed by plan name / window l)
     _plan_cache: dict = dataclass_field(default_factory=dict, repr=False,
                                         compare=False)
@@ -125,6 +135,55 @@ class GrammarBatch:
     @property
     def n(self) -> int:
         return len(self.gas)
+
+    @property
+    def real(self) -> int:
+        """Rows that correspond to real corpora: all of them, since a pack
+        on one card carries no shard padding."""
+        return self.n
+
+    @property
+    def real_gas(self) -> Tuple[GrammarArrays, ...]:
+        return self.gas[: self.real]
+
+    @property
+    def shards(self) -> int:
+        """Cards the pack spans: always 1 (sharding is not ported)."""
+        return 1
+
+    @property
+    def signature(self) -> Tuple[int, ...]:
+        """Pad signature, the JAX package's: packs with equal signatures
+        share plan shapes; the serving layer keys its latency estimates and
+        pack counters on it.  The trailing element is the shard count."""
+        return (self.n, self.R_pad, self.E_pad, self.T_pad, self.F_pad,
+                self.V_pad, int(self.fedge_file.shape[1]), self.Tf_pad,
+                self.shards)
+
+    def check_epochs(self, current: Sequence[int]) -> None:
+        """Raise :class:`StaleGrammarError` if any source corpus has moved
+        past the epoch this pack (and every lazy plan memoized on it) was
+        built from.
+
+        ``current`` is the live epoch per row, in pack order.  Packs
+        without epoch stamps (``epochs is None`` — built from bare
+        immutable arrays) pass trivially.  The serving layer re-packs
+        instead of raising; this is the backstop for any caller that skips
+        that refresh.
+        """
+        if self.epochs is None:
+            return
+        cur = tuple(int(e) for e in current)
+        if len(cur) > len(self.epochs):
+            raise StaleGrammarError(
+                f"epoch check over {len(cur)} corpora against a pack "
+                f"stamped with {len(self.epochs)}")
+        for i, (have, now) in enumerate(zip(self.epochs, cur)):
+            if have != now:
+                raise StaleGrammarError(
+                    f"pack row {i} was built at corpus epoch {have} but "
+                    f"the corpus is now at epoch {now} — re-pack before "
+                    f"serving (the corpus absorbed appended files)")
 
     def _place(self, arr: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(arr, device=self.device)
@@ -176,13 +235,20 @@ class GrammarBatch:
     # ------------------------------------------------------------ build --
     @classmethod
     def build(cls, gas: Sequence[GrammarArrays], bucket: bool = True,
-              device=None) -> "GrammarBatch":
+              device=None,
+              epochs: Optional[Sequence[int]] = None) -> "GrammarBatch":
         """Pack ``gas`` on ``device`` (the card by default; ``"cpu"`` runs
-        the plain torch versions of the kernels)."""
+        the plain torch versions of the kernels).  ``epochs`` stamps each
+        row with its source corpus's epoch (:meth:`check_epochs`)."""
         if not gas:
             raise ValueError("GrammarBatch needs at least one corpus")
         dev = resolve_device(device)
         gas = tuple(gas)
+        if epochs is not None:
+            epochs = tuple(int(e) for e in epochs)
+            if len(epochs) != len(gas):
+                raise ValueError(f"epochs stamps {len(epochs)} corpora but "
+                                 f"the pack has {len(gas)}")
         rnd = _round_up_pow2 if bucket else (lambda x, minimum=1:
                                              max(int(x), minimum))
         R_pad = rnd(max(ga.num_rules for ga in gas))
@@ -264,6 +330,7 @@ class GrammarBatch:
             lv_child=put(lv_child),
             lv_freq=put(lv_freq),
             lv_slices=tuple(lv_slices),
+            epochs=epochs,
         )
 
 
@@ -358,6 +425,8 @@ def _leveled_weights(ep, ec, ef, slices, R: int) -> torch.Tensor:
 ELL_METHODS = ("frontier_ell", "leveled_ell", "frontier_fused")
 SEGMENT_SUM_BASES = {"frontier_ell": "frontier", "frontier_fused": "frontier",
                      "leveled_ell": "leveled"}
+#: The analytics whose traversal is per-file (vector payload).
+PER_FILE_KINDS = ("term_vector", "inverted_index", "ranked_inverted_index")
 
 
 def resolve_traversal_method(method: str, *, n: int, rows: int, k: int,
@@ -400,6 +469,12 @@ def resolve_traversal_method(method: str, *, n: int, rows: int, k: int,
             if not kops.ell_fused_use_kernel(rows):
                 return "frontier_ell"
     return method
+
+
+def is_segment_sum_fallback(requested: str, resolved: str) -> bool:
+    """True when an explicitly-requested ELL-family method landed on a
+    segment_sum base (the downgrade ServerStats.method_fallbacks counts)."""
+    return requested in ELL_METHODS and resolved in ("frontier", "leveled")
 
 
 def resolve_batch_method(gb: GrammarBatch, method: str,
@@ -717,9 +792,12 @@ def _lexsort_rows(keys: torch.Tensor) -> torch.Tensor:
     return order
 
 
-def _count_windows_batched(head, tail, weights, st_kind, st_lit, st_src,
-                           st_idx, st_symj, win_start, win_rule, win_valid,
-                           l: int):
+def _window_tokens(head, tail, weights, st_kind, st_lit, st_src, st_idx,
+                   st_symj, win_start, win_rule, win_valid, l: int):
+    """The tokens of every l-window of the padded streams and its weight:
+    ``(wtok [N, Nw, l], wweight [N, Nw])``, the weight being the window
+    rule's occurrence count, or 0 where the window is invalid (it holds a
+    break, lies inside one symbol, or is padding)."""
     N, R, h = head.shape
     sel = _flat_index(st_src * h + st_idx, R * h)
     hg = head.reshape(-1)[sel].view(st_src.shape)
@@ -736,6 +814,16 @@ def _count_windows_batched(head, tail, weights, st_kind, st_lit, st_src,
     valid = ((wtok >= 0).all(dim=2) & (wsym[:, :, 0] != wsym[:, :, -1])
              & win_valid)
     wweight = torch.where(valid, torch.gather(weights, 1, win_rule), 0.0)
+    return wtok, wweight
+
+
+def _count_windows_batched(head, tail, weights, st_kind, st_lit, st_src,
+                           st_idx, st_symj, win_start, win_rule, win_valid,
+                           l: int):
+    wtok, wweight = _window_tokens(head, tail, weights, st_kind, st_lit,
+                                   st_src, st_idx, st_symj, win_start,
+                                   win_rule, win_valid, l)
+    N, Nw, _ = wtok.shape
     order = _lexsort_rows(wtok)
     stok = torch.gather(wtok, 1, order[:, :, None].expand(-1, -1, l))
     sw = torch.gather(wweight, 1, order)

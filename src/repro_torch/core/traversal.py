@@ -175,6 +175,11 @@ def per_file_weights(ga: GrammarArrays, method: str = "frontier",
     if method in _batch.ELL_METHODS:
         method = resolve_single_method(ga, method, per_file=True)
     F = ga.num_files
+    if F == 0:
+        # no file to attribute a rule to (the pack's per-file init would
+        # scatter its padding entry out of an empty [R, 0] table)
+        return torch.zeros((ga.num_rules, 0), dtype=torch.float32,
+                           device=dev)
     gb = device_pack(ga, dev)
     fc, ff, fq = gb.fedge_child, gb.fedge_file, gb.fedge_freq
     if method in ("frontier_ell", "leveled_ell"):

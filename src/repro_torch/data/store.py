@@ -10,10 +10,10 @@ append_files` — Sequitur is online, so appended files extend the live
 grammar without recompressing what is already stored, and the result is
 bit-identical to a from-scratch build of the concatenated file list.
 Every mutation bumps the monotonically increasing ``epoch``; every derived
-memo on the store (traversal weights) is stamped with the epoch it was
-computed at and is recomputed on mismatch, so a stale grammar can never be
-served.  Memo keys carry the device, so a CPU result never serves a CUDA
-call.
+memo on the store (traversal weights, the search index) is stamped with
+the epoch it was computed at and is recomputed on mismatch, so a stale
+grammar can never be served.  Memo keys carry the device, so a CPU result
+never serves a CUDA call.
 """
 
 from __future__ import annotations
@@ -42,8 +42,8 @@ def _count_memo(result: str) -> None:
     ``miss`` (first build)."""
     global_registry().counter(
         "repro_store_memo_lookups_total",
-        "epoch-stamped memo lookups on CompressedCorpus (weights) by "
-        "result", ("result",)).labels(result).inc()
+        "epoch-stamped memo lookups on CompressedCorpus (weights, "
+        "search index) by result", ("result",)).labels(result).inc()
 
 
 _META_FIELDS = ("vocab_size", "num_files", "num_rules", "num_levels")
@@ -236,6 +236,18 @@ class CompressedCorpus:
         return self._memo(("per_file", method, str(dev)),
                           lambda: _per_file_weights(self.ga, method=method,
                                                     device=dev))
+
+    def search_index(self, method: str = "frontier", device=None):
+        """Per-corpus retrieval index (tf / doc lengths / doc frequencies /
+        BM25 normalizer), memoized per (traversal base, device) like the
+        traversal weights — it shares the memoized per-file traversal with
+        the per-file analytics.  Lazy import: the search package sits
+        above the store in the layering."""
+        from repro_torch.search.index import base_method, build_search_index
+        dev = resolve_device(device)
+        return self._memo(("search_index", base_method(method), str(dev)),
+                          lambda: build_search_index(self, method=method,
+                                                     device=dev))
 
     def cached_weight_keys(self):
         return tuple(sorted(self._weights_cache))

@@ -32,7 +32,7 @@ __all__ = [
     "weighted_bincount", "weighted_bincount_batched", "ell_row_sums",
     "ell_propagate_batched", "ell_propagate_vector", "ell_frontier_fused",
     "bincount_batch_rows", "ell_batched_use_ref", "ell_fused_use_kernel",
-    "ell_vector_plan_ok",
+    "ell_vector_plan_ok", "masked_top_k",
 ]
 
 # weighted_bincount_batched flattens [N, T] ids into N*nbins disjoint bins;
@@ -257,3 +257,27 @@ def ell_frontier_fused(weights0: torch.Tensor, in_deg: torch.Tensor,
         w, rounds = ell_frontier_fused_cuda(weights0, in_deg, src, freq,
                                             max_rounds)
     return (w, rounds) if with_rounds else w
+
+
+def masked_top_k(scores: torch.Tensor, valid: torch.Tensor, k: int):
+    """Top-k over the trailing axis with invalid slots masked out.
+
+    The search subsystem's ranking primitive (the JAX package's
+    ``masked_top_k``, which is ``jax.lax.top_k`` and no Pallas kernel):
+    ``scores [..., M]`` and a ``valid`` mask of the same shape; masked
+    slots become ``-inf`` so any finite real score outranks them.  Returns
+    ``(values, indices int32)`` of the ``k`` largest per row, values
+    descending, equal values toward the LOWER index — ``lax.top_k``'s
+    tie-break, the deterministic file-id order the retrieval layer
+    promises.  ``torch.topk`` promises no order among equal values, so this
+    is a stable descending sort cut to ``k``: plain torch on every device.
+    """
+    k = int(k)
+    if k < 1:
+        raise ValueError(f"masked_top_k needs k >= 1, got {k}")
+    if k > scores.shape[-1]:
+        raise ValueError(f"k={k} exceeds the candidate axis "
+                         f"({scores.shape[-1]})")
+    masked = torch.where(valid, scores, float("-inf"))
+    vals, idx = torch.sort(masked, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k].to(torch.int32)

@@ -5,6 +5,8 @@ arbitrary floats, so sums are exact in any order."""
 
 from __future__ import annotations
 
+import importlib.util
+import pathlib
 from typing import List, Tuple
 
 import numpy as np
@@ -302,3 +304,49 @@ def ragged_corpora(seed: int = 1234) -> List[Tuple[List[np.ndarray], int]]:
     rng = np.random.default_rng(seed)
     return [(corpus_files(rng, v, nf, size), v)
             for (v, nf, size) in RAGGED_SPECS]
+
+
+# ------------------------------------------------ search / query oracles --
+# numpy over the raw token files: chip_smoke.py's own oracles (it cannot
+# import tests/), loaded from the repo root so there is one copy; their
+# float32 operation order is that of tests/_oracle.py, so the comparisons
+# can demand bit equality.
+def _load_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke_oracles",
+        pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_SMOKE = _load_smoke()
+
+
+def files_term_vector(files, vocab: int) -> np.ndarray:
+    """[F, V] float32 per-file counts of the raw files."""
+    return np.stack([np.bincount(np.asarray(f, np.int64), minlength=vocab)
+                     for f in files]).astype(np.float32).reshape(
+                         len(files), vocab)
+
+
+def files_search(files, vocab: int, terms, k: int, scheme: str):
+    """BM25 / TF-IDF top-k of the raw files: (ids int32, scores float32),
+    ties toward the lower file id."""
+    return _SMOKE.search_oracle(files_term_vector(files, vocab), terms, k,
+                                scheme)
+
+
+def files_filter(files, vocab: int, predicate) -> np.ndarray:
+    """Ascending int32 ids of the files satisfying a canonical predicate."""
+    return _SMOKE.filter_oracle(files_term_vector(files, vocab), predicate)
+
+
+def files_agg(files, vocab: int, terms, op: str):
+    """(per_file [F] float32, total float32) sum/max of the term counts."""
+    return _SMOKE.agg_oracle(files_term_vector(files, vocab), terms, op)
+
+
+def files_phrase(files, phrase) -> np.float32:
+    """Occurrences of the phrase in the raw files (never across files)."""
+    return _SMOKE.phrase_oracle(files, phrase)

@@ -27,8 +27,9 @@ from repro_torch.kernels.propagate import ell_row_sums_cuda
 from repro_torch.kernels.propagate_batched import ell_propagate_batched_cuda
 
 from _torch_inputs import (FUSED_CASES, batch_dags, bincount_inputs,
-                           fused_case, plan_inputs, ragged_corpora,
-                           vector_case, vector_inputs)
+                           files_agg, files_filter, files_phrase,
+                           files_search, fused_case, plan_inputs,
+                           ragged_corpora, vector_case, vector_inputs)
 
 torch.set_num_threads(1)
 
@@ -458,12 +459,15 @@ def _single_corpus():
 
 
 def _equal(a, b, what):
-    for x, y in zip(a if isinstance(a, tuple) else (a,),
-                    b if isinstance(b, tuple) else (b,)):
-        x = x.cpu().numpy() if isinstance(x, torch.Tensor) else x
-        y = y.cpu().numpy() if isinstance(y, torch.Tensor) else y
-        assert x.dtype == y.dtype, what
-        np.testing.assert_array_equal(x, y, err_msg=what)
+    if isinstance(b, (tuple, list)):
+        assert isinstance(a, (tuple, list)) and len(a) == len(b), what
+        for x, y in zip(a, b):
+            _equal(x, y, what)
+        return
+    x = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    y = b.cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    assert x.dtype == y.dtype, (what, x.dtype, y.dtype)
+    np.testing.assert_array_equal(x, y, err_msg=what)
 
 
 def test_single_corpus_on_card_matches_cpu(cuda):
@@ -553,3 +557,166 @@ def test_explicit_cuda_device_shares_the_memo(cuda):
     assert engine == [("pack", id(ga), card)]
     store = [k for k in cc.cached_weight_keys() if k[0] == "top_down"]
     assert store == [("top_down", "frontier", card)]
+
+
+# ------------------------------------- search, query operators, serving --
+SERVE_METHODS = ("frontier", "frontier_ell", "frontier_fused")
+PRED = ("or", (("term", 1, 1), ("and", (("term", 2, 2), ("term", 3, 1)))))
+
+
+def _serve_corpora():
+    """(files, vocab) of three corpora; corpus 0 holds two copies of one
+    file, so their scores tie under every query."""
+    rng = np.random.default_rng(11)
+    out = []
+    for v, nf in ((30, 4), (45, 3), (25, 5)):
+        base = rng.integers(0, v, 20)
+        files = [np.concatenate([base] * int(rng.integers(1, 4))
+                                + [rng.integers(0, v, 40)])
+                 for _ in range(nf)]
+        out.append((files, v))
+    out[0][0].append(out[0][0][1])
+    return out
+
+
+def _grammar(files, vocab):
+    g, nf = compress_files(files, vocab)
+    return flatten(g, vocab, nf)
+
+
+def _rare_term(files, vocab):
+    """A term that only one file holds: the rest of a top-k over it is
+    zero-score ties."""
+    df = (np.stack([np.bincount(f, minlength=vocab) for f in files]) > 0
+          ).sum(axis=0)
+    return int(np.flatnonzero(df == df[df > 0].min())[0])
+
+
+def test_masked_top_k_ties_on_card(cuda, seeded_rng):
+    scores = seeded_rng.integers(0, 3, (5, 300)).astype(np.float32)
+    valid = seeded_rng.random((5, 300)) < 0.7
+    s_, v_ = _on(cuda, scores, valid)
+    vals, idx = ops.masked_top_k(s_, v_, 40)
+    masked = np.where(valid, scores, -np.inf)
+    order = np.argsort(-masked, axis=1, kind="stable")[:, :40]
+    np.testing.assert_array_equal(idx.cpu().numpy(), order)
+    np.testing.assert_array_equal(vals.cpu().numpy(),
+                                  np.take_along_axis(masked, order, 1))
+
+
+@pytest.mark.parametrize("method", SERVE_METHODS)
+def test_search_on_card(cuda, method):
+    """Batched and single-corpus BM25 / TF-IDF rankings on the card equal
+    the raw-file oracle bit for bit, tie orders included."""
+    from repro_torch.search import batched_search, search_corpus
+    corpora = _serve_corpora()
+    gb = GrammarBatch.build([_grammar(f, v) for f, v in corpora])
+    rare = _rare_term(*corpora[0])
+    for terms in ((1, rare, 10_000, 1), (rare,), (0, 2, 3)):
+        for scheme in ("bm25", "tfidf"):
+            for k in (1, 3, 8):
+                got = batched_search(gb, terms, k=k, scheme=scheme,
+                                     method=method)
+                for (files, v), (ids, sc) in zip(corpora, got):
+                    want = files_search(files, v, terms, k, scheme)
+                    _equal((ids, sc), want, f"{terms} {scheme} {k}")
+                files, v = corpora[0]
+                single = search_corpus(CompressedCorpus.build(files, v),
+                                       terms, k=k, scheme=scheme,
+                                       method=method)
+                _equal(single, files_search(files, v, terms, k, scheme),
+                       f"single {terms} {scheme} {k}")
+
+
+@pytest.mark.parametrize("method", SERVE_METHODS)
+def test_query_operators_on_card(cuda, method):
+    """filter / agg / phrase, batched and single-corpus, on the card equal
+    the raw-file oracle."""
+    import repro_torch.query as tq
+    corpora = _serve_corpora()
+    gb = GrammarBatch.build([_grammar(f, v) for f, v in corpora])
+    present = tuple(int(t) for t in corpora[0][0][0][:3])
+    got = tq.batched_filter(gb, PRED, method=method)
+    for (files, v), g in zip(corpora, got):
+        _equal(g, files_filter(files, v, PRED), "filter")
+    for op in ("sum", "max"):
+        got = tq.batched_agg(gb, (1, 2, 2, 99), op, method=method)
+        for (files, v), g in zip(corpora, got):
+            _equal(g, files_agg(files, v, (1, 2, 2, 99), op), f"agg {op}")
+    for phrase in (present, (99, 98, 97)):
+        got = tq.batched_phrase(gb, phrase, method=method)
+        for (files, _), g in zip(corpora, got):
+            _equal(g, files_phrase(files, phrase), f"phrase {phrase}")
+    files, v = corpora[0]
+    cc = CompressedCorpus.build(files, v)
+    _equal(tq.filter_corpus(cc, PRED, method=method),
+           files_filter(files, v, PRED), "single filter")
+    _equal(tq.agg_corpus(cc, (1, 2), "max", method=method),
+           files_agg(files, v, (1, 2), "max"), "single agg")
+    _equal(tq.phrase_corpus(cc, present, method=method),
+           files_phrase(files, present), "single phrase")
+
+
+def test_servers_on_card(cuda):
+    """A small sync server on the card answers all 11 kinds as the CPU
+    server does (and the search and query kinds as the oracle does); the
+    async queue, fed from four threads, answers as the sync run."""
+    import threading
+    from repro_torch.serving import (SERVED_KINDS, AnalyticsServer,
+                                     AsyncAnalyticsServer, Query)
+    corpora = _serve_corpora()
+    present = tuple(int(t) for t in corpora[0][0][0][:3])
+
+    def queries(names):
+        out = []
+        for c in names:
+            out += [Query(c, kind, terms=(1, 2, 99), k=3, predicate=PRED,
+                          agg="max") for kind in SERVED_KINDS
+                    if kind != "phrase_count"]
+            out.append(Query(c, "phrase_count", terms=present))
+        return out
+
+    for method in SERVE_METHODS:
+        _common.reset_launch_counts()
+        srv = {dev: AnalyticsServer(max_batch=2, method=method, device=dev)
+               for dev in (None, "cpu")}
+        for dev, s in srv.items():
+            for i, (files, v) in enumerate(corpora[:2]):
+                s.register(f"c{i}", _grammar(files, v))
+            s.register("store", CompressedCorpus.build(*corpora[2]))
+        assert srv[None].device.type == cuda.type
+        qs = queries(srv[None].corpora())
+        got = srv[None].run(qs)
+        want = srv["cpu"].run(qs)
+        byname = dict(zip(("c0", "c1", "store"), corpora))
+        for q, g, w in zip(qs, got, want):
+            _equal(g, w, f"{method} {q.kind} {q.corpus}")
+            files, v = byname[q.corpus]
+            if q.kind == "search_bm25":
+                _equal(g, files_search(files, v, q.terms, 3, "bm25"), "bm25")
+            elif q.kind == "filter_count":
+                _equal(g, files_filter(files, v, PRED), "filter")
+            elif q.kind == "phrase_count":
+                _equal(g, files_phrase(files, present), "phrase")
+        assert srv[None].stats.single_calls > 0
+        if method != "frontier":
+            counts = _common.launch_counts()
+            assert counts["ell_propagate_vector"] > 0, counts
+        aq = AsyncAnalyticsServer(srv[None], idle_timeout=0.002).start()
+        futs = [None] * len(qs)
+
+        def worker(w):
+            for j in range(w, len(qs), 4):
+                futs[j] = aq.submit(qs[j], deadline=srv[None].clock() + 60)
+
+        threads = [threading.Thread(target=worker, args=(w,))
+                   for w in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+        aq.close()
+        for q, f, g in zip(qs, futs, got):
+            _equal(f.result(timeout=60), g, f"async {method} {q.kind}")
+        assert srv[None].stats.shed == 0
