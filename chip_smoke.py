@@ -55,7 +55,27 @@ CUDA toolkit.  Phases:
    with deadlines: equal to the sync answers, nothing shed, flush reasons
    printed.  Kernels 1, 2 and 3 must each launch here (``serve_launches``
    in each record).
-5. Kernels: each kernel at the main path's shapes against its plain torch
+5. Checkpoint, with launch counts zeroed just before and read just after:
+   the single corpus built from 75% of its files and grown by one append
+   (epoch 1) is snapshot with ``save_corpus`` into a temporary directory
+   and restored; every field and the epoch survive, an append of the
+   remaining files after the restore equals the same append on the
+   unbroken store and a build of all files, and the restored corpus's six
+   analytics (``frontier_fused``, kernel histogram) are exact against the
+   oracle.  Kernels 2 and 4 must launch here.
+6. Sharding, counts zeroed just before and read just after: the pack's
+   corpora over corpus meshes of 2 and 3 shards on the one card
+   (``corpus_mesh(("cuda:0",) * k)``; 3 pads 16 corpora to 18) and, with
+   two or more cards, over every visible card: the six analytics under
+   ``frontier``, ``frontier_ell`` and ``frontier_fused`` on the sharded
+   pack, a BM25 search, a filter and a phrase through ``run_sharded`` —
+   every answer exact against the oracle and equal to the unsharded
+   pack's, wall times beside the unsharded ones — the subset's per-file
+   ELL rounds and kernel histogram over 2 shards, then one
+   ``AnalyticsServer(mesh=..., shard_min_corpora=2)`` a mesh serving the
+   11 kinds to every pack corpus, exact, with ``sharded_calls > 0``.
+   Kernels 1-4 must launch here.
+7. Kernels: each kernel at the main path's shapes against its plain torch
    version on the same card inputs (exact equality: all values are
    integer-valued float32 below 2^24), timed with CUDA events around one
    wrapper call (``ms``, median of 20 runs after warm-up) beside its bound
@@ -70,7 +90,19 @@ CUDA toolkit.  Phases:
    and again on the single corpus's N=1 plan (extra ``single_*`` fields of
    its record), each with the grid of its cooperative launch and a
    breakdown (the kernel cut to one round against the whole loop).
+8. Autotune, counts zeroed just before and read just after: every
+   kernel's launch shapes swept (``kernels/autotune.py``) at the shapes of
+   the pack, the subset and the single corpus that its main path runs,
+   every candidate exact against the plain version before its time
+   counts (device time a call: CUDA events around 20 calls queued behind
+   a spin kernel), and the ``ell_vs_seg`` route timed at the pack and the
+   subset; the table goes to a temporary file, is reloaded, and ``ops``
+   must hit it at every swept shape with the same answers.  Each record
+   gains ``tuned_shape`` / ``tuned_device_ms`` at its main-path shape
+   beside ``default_sweep_device_ms``.
 
+Phases 1-7 run with no tuned table (``REPRO_AUTOTUNE_CACHE`` points at a
+file that does not exist), so they launch the shipped shapes.
 It prints one ``{"kernels": [...]}`` line and, last, the device line, and
 exits non-zero on any failure — or at once when there is no CUDA device or
 no ``src/repro_torch`` beside it.
@@ -83,6 +115,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -120,6 +153,15 @@ SERVE_DEADLINE = 600.0
 # the kernels the serving path must launch
 SERVE_KERNELS = ("ell_propagate_batched", "ell_frontier_fused",
                  "ell_propagate_vector")
+
+# the checkpoint phase (phase 5): the kernels its analytics must launch
+CKPT_KERNELS = ("ell_frontier_fused", "weighted_bincount")
+# the sharding phase (phase 6): shard counts on the one card, methods, and
+# the kernels it must launch
+SHARD_COUNTS = (2, 3)
+SHARD_METHODS = ("frontier", "frontier_ell", "frontier_fused")
+SHARD_KERNELS = ("ell_propagate_batched", "ell_frontier_fused",
+                 "ell_propagate_vector", "weighted_bincount")
 
 TIMING_REPS = 20
 TIMING_WARMUP = 3
@@ -607,14 +649,14 @@ def expected_fallbacks(srv, sets, kind: str, groups: int, counter) -> None:
             counter[f"{requested}->{resolved}"] += groups
 
 
-def serve_phase(sets, vocab: int, dev) -> None:
+def serve_phase(sets, vocab: int, dev):
     """Phase 4: every corpus set registered on one ``AnalyticsServer`` per
     method (the pack's corpora and the subset's as ``GrammarArrays``, the
     single corpus as its ``CompressedCorpus``), every served kind asked of
     every corpus through ``run`` — each answer exact against the raw-file
     oracle, repeat calls timed and equal to the first — then the same
     queries through ``AsyncAnalyticsServer`` from SERVE_THREADS threads,
-    equal to the sync answers with nothing shed."""
+    equal to the sync answers with nothing shed.  Returns the query specs."""
     import collections
     import threading
     from repro_torch.serving import (AnalyticsServer, AsyncAnalyticsServer,
@@ -713,6 +755,7 @@ def serve_phase(sets, vocab: int, dev) -> None:
             f"flushes by reason {reasons}")
         del srv, aq
     log(f"[serve] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return specs
 
 
 def to_tuple(r):
@@ -1065,6 +1108,393 @@ def kernel_phase(gb, sub, single, dev):
     return out
 
 
+# ----------------------------------------------------------------------- #
+# Checkpoint (phase 5): a mid-ingest snapshot of the single store          #
+# ----------------------------------------------------------------------- #
+def ckpt_phase(files, vocab: int, cc, want, dev) -> None:
+    """Phase 5: the single corpus built from a prefix of its files and
+    grown by one append (epoch 1) is snapshot with ``save_corpus`` into a
+    temporary directory and restored; every field and the epoch survive,
+    an append after the restore equals the same append on the unbroken
+    store (and a build of every file), and the restored corpus's analytics
+    are exact against the oracle."""
+    import torch
+    import repro_torch.core as tc
+    from repro_torch.checkpoint import restore_corpus, save_corpus
+    from repro_torch.data import CompressedCorpus
+
+    t_phase = time.perf_counter()
+    cut = max(1, int(len(files) * INGEST_SHARE))
+    mid = (cut + len(files)) // 2
+    live = CompressedCorpus.build(files[:cut], vocab)
+    live.append_files(files[cut:mid])
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_corpus(tmp, 1, live)
+        size = sum(os.path.getsize(os.path.join(root, f))
+                   for root, _, fs in os.walk(tmp) for f in fs)
+        restored, step = restore_corpus(tmp)
+        io_ms = (time.perf_counter() - t0) * 1e3
+    check(step == 1 and restored.epoch == live.epoch == 1,
+          f"[ckpt] restored step {step} epoch {restored.epoch}, saved at "
+          f"step 1 epoch {live.epoch}")
+    assert_corpus_equal(restored, live, "[ckpt] restore")
+    check(restored.cached_weight_keys() == (),
+          "[ckpt] a restored corpus came back with memos")
+    log(f"[ckpt] snapshot of the store after {mid} of {len(files)} files "
+        f"(build {cut} + append {mid - cut}, epoch 1): {size} B on disk, "
+        f"saved and restored in {io_ms:.1f} ms; every field and the epoch "
+        f"round-trip")
+    t0 = time.perf_counter()
+    restored.append_files(files[mid:])
+    live.append_files(files[mid:])
+    check(restored.epoch == live.epoch == 2, "[ckpt] epochs after append")
+    assert_corpus_equal(restored, live, "[ckpt] append after restore")
+    assert_corpus_equal(restored, cc, "[ckpt] append after restore vs build")
+    log(f"[ckpt] append of {len(files) - mid} files after the restore == "
+        f"the same append on the unbroken store == a build of all files "
+        f"({time.perf_counter() - t0:.1f} s, replay included)")
+    m = "frontier_fused"
+    w = restored.top_down_weights(m, device=dev)
+    wf = restored.per_file_weights(m, device=dev)
+    ga = restored.ga
+    res = {
+        "word_count": tc.word_count(ga, m, "kernel", weights=w, device=dev),
+        "sort": tc.sort_words(ga, m, "kernel", weights=w, device=dev),
+        "term_vector": tc.term_vector(ga, m, file_weights=wf, device=dev),
+        "inverted_index": tc.inverted_index(ga, m, file_weights=wf,
+                                            device=dev),
+        "ranked_inverted_index": tc.ranked_inverted_index(
+            ga, m, file_weights=wf, device=dev),
+        "sequence_count": tc.sequence_count(ga, SEQ_L, m, weights=w,
+                                            device=dev)}
+    for kind, r in res.items():
+        assert_same(to_host(r), want[kind], f"[ckpt] restored {kind}")
+    check(torch.equal(w, cc.top_down_weights(m, device=dev)),
+          "[ckpt] restored weights differ from the unbroken store's")
+    log(f"[ckpt] the six analytics of the restored corpus ({m}, kernel "
+        f"histogram) == the oracle; phase done in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+# ----------------------------------------------------------------------- #
+# Sharding (phase 6): the pack split over a corpus mesh                     #
+# ----------------------------------------------------------------------- #
+def shard_phase(corpora, oracles, sub_corpora, sub_oracles, gb, specs,
+                dev) -> None:
+    """Phase 6: the pack's corpora over corpus meshes of SHARD_COUNTS
+    shards on the one card (the last shard padded where the count does not
+    divide) and, with two or more cards, over every visible card: the six
+    analytics under SHARD_METHODS through ``run_batched`` on the sharded
+    pack, a search, a filter and a phrase through ``run_sharded``, each
+    exact against the raw-file oracle and equal to the unsharded pack's
+    answer, with the wall time of each shard count beside the unsharded
+    time.  The subset's per-file ELL rounds and the kernel histogram run
+    sharded too.  Then one ``AnalyticsServer(mesh=..., shard_min_corpora=2)``
+    a mesh serves the 11 kinds to every pack corpus once, exact, with
+    ``sharded_calls > 0``."""
+    import torch
+    from repro_torch.core import ANALYTICS_KINDS, run_batched
+    from repro_torch.core.batch import PER_FILE_KINDS
+    from repro_torch.distributed import corpus_mesh, run_sharded, shard_batch
+    from repro_torch.query.engine import run_batched_query
+    from repro_torch.search.engine import batched_search
+    from repro_torch.search.scoring import KIND_SCHEME
+    from repro_torch.serving import AnalyticsServer, Query
+
+    t_phase = time.perf_counter()
+    gas = [ga for _, ga in corpora]
+    meshes = [(f"{k} shards on {dev}", corpus_mesh((str(dev),) * k))
+              for k in SHARD_COUNTS]
+    if dev.type == "cuda" and torch.cuda.device_count() >= 2:
+        meshes.append((f"every card ({torch.cuda.device_count()})",
+                       corpus_mesh()))
+    else:
+        log("[shard] one card visible: the mesh over every card is not run")
+    qspecs = []
+    for kind in ("search_bm25", "filter_count", "phrase_count"):
+        qspecs.append(next((k, kw) for k, kw in specs if k == kind))
+
+    def unsharded(kind, kw):
+        if kind in KIND_SCHEME:
+            return batched_search(gb, kw["terms"], k=kw["k"],
+                                  scheme=KIND_SCHEME[kind])
+        return run_batched_query(gb, kind, **kw)
+
+    runs = [(kind, m) for kind in ANALYTICS_KINDS for m in SHARD_METHODS]
+    base, base_ms = {}, {}
+    for kind, m in runs:
+        t0 = time.perf_counter()
+        base[(kind, m)] = run_batched(gb, kind, m, l=SEQ_L)
+        base_ms[(kind, m)] = (time.perf_counter() - t0) * 1e3
+    for kind, kw in qspecs:
+        base[(kind, None)] = unsharded(kind, kw)
+    log(f"[shard] unsharded pack of {gb.n}: {len(runs)} runs in "
+        f"{sum(base_ms.values()):.1f} ms (host clock, plans memoized)")
+
+    def exact(res, oracle_of, key, what):
+        check(len(res) == len(corpora), f"{what}: {len(res)} results")
+        for i, r in enumerate(res):
+            assert_same(to_tuple(r), oracle_of(i), f"{what} corpus {i}")
+            assert_same(to_tuple(r), to_tuple(base[key][i]),
+                        f"{what} corpus {i} vs the unsharded pack")
+
+    for label, mesh in meshes:
+        t0 = time.perf_counter()
+        sgb = shard_batch(gas, mesh)
+        pack_ms = (time.perf_counter() - t0) * 1e3
+        # two passes: the first builds the shards' plans, the second runs
+        # on them as the unsharded pack's runs above do on its own
+        first, times = {}, {}
+        for rnd in (first, times):
+            for kind, m in runs:
+                t0 = time.perf_counter()
+                res = run_batched(sgb, kind, m, l=SEQ_L)
+                rnd[(kind, m)] = (time.perf_counter() - t0) * 1e3
+                exact(res, lambda i: oracles[i][kind], (kind, m),
+                      f"[shard] {label} {kind}/{m}")
+        q_ms = []
+        for kind, kw in qspecs:
+            t0 = time.perf_counter()
+            res = run_sharded(gas, kind, mesh=mesh, **kw)
+            q_ms.append((time.perf_counter() - t0) * 1e3)
+            exact(res, lambda i: serve_oracle(kind, kw, corpora[i][0],
+                                              oracles[i]),
+                  (kind, None), f"[shard] {label} {kind}")
+        per_kind = ", ".join(
+            f"{kind} {sum(times[(kind, m)] for m in SHARD_METHODS):.1f}/"
+            f"{sum(base_ms[(kind, m)] for m in SHARD_METHODS):.1f}"
+            for kind in ANALYTICS_KINDS)
+        log(f"[shard] {label}: N={sgb.n} ({sgb.real} real, shards of "
+            f"{sgb.shard_packs[0].n}) packed in {pack_ms:.1f} ms; "
+            f"{len(runs)} runs exact and == unsharded, twice: "
+            f"{sum(first.values()):.1f} ms with the shards' plan builds, "
+            f"then {sum(times.values()):.1f} ms vs "
+            f"{sum(base_ms.values()):.1f} ms unsharded (second pass per "
+            f"kind over {len(SHARD_METHODS)} methods, sharded/unsharded "
+            f"ms: {per_kind}); run_sharded "
+            + ", ".join(f"{k} {t:.1f} ms" for (k, _), t in zip(qspecs, q_ms))
+            + " (re-packs a call), exact")
+        del sgb
+
+    # the subset: per-file ELL rounds (kernel 3) and the kernel histogram
+    mesh = meshes[0][1]
+    ssub = shard_batch([ga for _, ga in sub_corpora], mesh)
+    n_sub = 0
+    for kind in PER_FILE_KINDS:
+        for m in ("frontier_ell", "leveled_ell"):
+            for i, r in enumerate(run_batched(ssub, kind, m)):
+                assert_same(r, sub_oracles[i][kind],
+                            f"[shard] subset {kind}/{m} corpus {i}")
+            n_sub += 1
+    for kind in ("word_count", "sort"):
+        for i, r in enumerate(run_batched(ssub, kind, "frontier_fused",
+                                          backend="kernel")):
+            assert_same(r, sub_oracles[i][kind],
+                        f"[shard] subset {kind}/kernel corpus {i}")
+        n_sub += 1
+    log(f"[shard] subset of {len(sub_corpora)} over {meshes[0][0]}: "
+        f"{n_sub} runs (per-file ELL rounds, kernel histogram) exact")
+
+    # the server over each mesh
+    for label, mesh in meshes:
+        srv = AnalyticsServer(method="frontier_fused", mesh=mesh,
+                              shard_min_corpora=2, device=dev)
+        for i, (_, ga) in enumerate(corpora):
+            srv.register(f"p{i}", ga)
+        t_srv, lat = time.perf_counter(), []
+        for kind, kw in specs:
+            t0 = time.perf_counter()
+            res = srv.run([Query(f"p{i}", kind, **kw)
+                           for i in range(len(corpora))])
+            lat.append(f"{kind} {(time.perf_counter() - t0) * 1e3:.1f}")
+            for i, r in enumerate(res):
+                assert_same(to_tuple(r), serve_oracle(
+                    kind, kw, corpora[i][0], oracles[i]),
+                    f"[shard] server {label} p{i} {kind} {kw}")
+        check(srv.stats.sharded_calls > 0,
+              f"[shard] server {label}: no sharded call")
+        log(f"[shard] server {label}: {len(specs)} queries x "
+            f"{len(corpora)} corpora exact in "
+            f"{(time.perf_counter() - t_srv) * 1e3:.1f} ms (ms a run, in "
+            f"order, first calls: {', '.join(lat)}); sharded_calls "
+            f"{srv.stats.sharded_calls} of batched_calls "
+            f"{srv.stats.batched_calls}")
+        mesh.close()
+    log(f"[shard] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
+# ----------------------------------------------------------------------- #
+# Autotune (phase 8): the launch-shape sweeps                              #
+# ----------------------------------------------------------------------- #
+def autotune_phase(gb, sub, single, records, dev) -> None:
+    """Phase 8: every kernel's launch shapes swept at the main path's
+    shapes (kernels 1 and 2 at the pack, the subset and the single corpus;
+    kernel 3 at the subset; kernel 4 at the pack's flat and batched
+    histograms, the subset's and the single corpus's; kernel 5 at the
+    single corpus's in-edge plan), each candidate exact against the plain
+    version before its time counts, and the ``ell_vs_seg`` route at the
+    pack and the subset; the table is written to a temporary file.
+    Reloaded, the table gives ``ops`` a ``hit`` at every swept shape and
+    the same answers.  Each record gains the tuned shape and device time
+    at its main-path shape beside the default's."""
+    import torch
+    from repro_torch.core import batch as tb
+    from repro_torch.core.traversal import device_pack
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import ops, ref
+    from repro_torch.obs import global_registry
+
+    t_phase = time.perf_counter()
+    ga, sw = single
+    spack = device_pack(ga, dev)
+
+    def round_args(pack, w):
+        src, freq, level, _ = pack.ell_plan()
+        return w, (level == 1).to(torch.float32), src, freq
+
+    def hist_args(pack, w):
+        vals = pack.tw_cnt * torch.gather(w, 1, pack.tw_rule)
+        return pack.tw_word, vals, pack.V_pad
+
+    w_pack = tb.batched_top_down_weights(gb, "frontier")
+    w_sub = tb.batched_top_down_weights(sub, "frontier")
+    vsrc, vfreq, vlevel, _ = sub.ell_plan()
+    W = tb.batched_per_file_weights(sub, "frontier")
+    nonroot = (torch.arange(vsrc.shape[1], device=dev) > 0)[None, :]
+    vargs = (W, ((vlevel == 1) & nonroot).to(torch.float32), vsrc, vfreq)
+    n, V = gb.n, gb.V_pad
+    ids_p, vals_p, _ = hist_args(gb, w_pack)
+    offs = (torch.arange(n, device=dev) * V)[:, None]
+    flat_ids = torch.where((ids_p >= 0) & (ids_p < V), ids_p + offs,
+                           -1).reshape(-1).to(torch.int32)
+    flat_vals = vals_p.reshape(-1).contiguous()
+    sids, svals, _ = hist_args(spack, sw[None])
+    rsrc, rfreq = ga.in_edges_ell_dense()
+    rsrc = torch.as_tensor(rsrc, device=dev).to(torch.int32).contiguous()
+    rfreq = torch.as_tensor(rfreq, device=dev).to(torch.float32).contiguous()
+    sweeps = [
+        ("ell_propagate_batched", "pack", at.tune_ell_batched,
+         round_args(gb, w_pack), ops.ell_propagate_batched),
+        ("ell_propagate_batched", "subset", at.tune_ell_batched,
+         round_args(sub, w_sub), ops.ell_propagate_batched),
+        ("ell_propagate_batched", "single", at.tune_ell_batched,
+         round_args(spack, sw[None]), ops.ell_propagate_batched),
+        ("ell_frontier_fused", "pack", at.tune_ell_fused, fused_args(gb),
+         ops.ell_frontier_fused),
+        ("ell_frontier_fused", "subset", at.tune_ell_fused, fused_args(sub),
+         ops.ell_frontier_fused),
+        ("ell_frontier_fused", "single", at.tune_ell_fused,
+         fused_args(spack), ops.ell_frontier_fused),
+        ("ell_propagate_vector", "subset", at.tune_ell_vector, vargs,
+         ops.ell_propagate_vector),
+        ("weighted_bincount", "pack", at.tune_bincount,
+         (flat_ids, flat_vals, n * V), ops.weighted_bincount),
+        ("weighted_bincount", "pack batched", at.tune_bincount,
+         hist_args(gb, w_pack), ops.weighted_bincount_batched),
+        ("weighted_bincount", "subset batched", at.tune_bincount,
+         hist_args(sub, w_sub), ops.weighted_bincount_batched),
+        ("weighted_bincount", "single", at.tune_bincount,
+         (sids[0], svals[0], ga.vocab_size), ops.weighted_bincount),
+        ("ell_row_sums", "single", at.tune_row_sums, (sw, rsrc, rfreq),
+         ops.ell_row_sums),
+    ]
+    # the shape each record was timed at in the kernel phase
+    main_shape = {"ell_propagate_batched": "pack",
+                  "ell_frontier_fused": "pack",
+                  "ell_propagate_vector": "subset",
+                  "weighted_bincount": "pack", "ell_row_sums": "single"}
+    by_name = {r["name"]: r for r in records}
+    old_env = os.environ.get(at.CACHE_ENV)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "autotune.json")
+        os.environ[at.CACHE_ENV] = path
+        at.reset_table()
+        try:
+            entries = []
+            for name, label, tune, args, _ in sweeps:
+                t0 = time.perf_counter()
+                e = tune(*args)
+                entries.append(e)
+                table = ", ".join(f"{c} {us / 1e3:.5g}"
+                                  for c, us in e["table_us"].items())
+                ratio = e["default_us"] / max(e["us"], 1e-9)
+                log(f"[autotune] {name} {label}: winner {e['winner']} "
+                    f"{e['blocks']} {e['us'] / 1e3:.5g} ms vs default "
+                    f"{e['default_us'] / 1e3:.5g} ms ({ratio:.3f}x); "
+                    f"device ms a call by candidate: {table}; every "
+                    f"candidate exact ({time.perf_counter() - t0:.1f} s)")
+                if label == main_shape[name]:
+                    by_name[name].update({
+                        "tuned_shape": e["blocks"],
+                        "tuned_device_ms": e["us"] / 1e3,
+                        "default_sweep_device_ms": e["default_us"] / 1e3,
+                        "sweep_device_ms": {c: us / 1e3 for c, us
+                                            in e["table_us"].items()}})
+            routes = {}
+            for label, pack in (("pack", gb), ("subset", sub)):
+                untuned = tb.resolve_batch_method(pack, "auto")
+                e = at.tune_ell_vs_seg(pack)
+                routes[label] = e
+                log(f"[autotune] ell_vs_seg {label}: "
+                    f"{e['winner']} (segment_sum "
+                    f"{e['table_us']['segment_sum'] / 1e3:.5g} ms, ELL "
+                    f"{e['table_us']['ell'] / 1e3:.5g} ms a frontier "
+                    f"traversal, CUDA events); auto resolved to {untuned} "
+                    f"without the table")
+            at.save_table()
+
+            # reload: ops takes the tuned shapes and routes, same answers
+            at.reset_table()
+            check(len(at.load_table()) == len(entries) + len(routes),
+                  "[autotune] the reloaded table lost entries")
+            fam = global_registry().counter(
+                "repro_kernel_tuned_table_total", "", ("kind", "result"))
+            hits0 = {k: c.value for k, c in
+                     ((k, fam.labels(k, "hit")) for k in
+                      ("ell_batched", "ell_fused", "ell_vector", "bincount",
+                       "row_sums"))}
+            plain = {ops.ell_propagate_batched: ref.ell_propagate_batched_ref,
+                     ops.ell_frontier_fused: ref.ell_frontier_fused_ref,
+                     ops.ell_propagate_vector: ref.ell_propagate_vector_ref,
+                     ops.weighted_bincount: ref.weighted_bincount_ref,
+                     ops.weighted_bincount_batched:
+                     ref.weighted_bincount_ref,
+                     ops.ell_row_sums: ref.ell_row_sums_ref}
+            for name, label, _, args, op in sweeps:
+                kw = ({"with_rounds": True}
+                      if op is ops.ell_frontier_fused else {})
+                got, want = op(*args, **kw), plain[op](*args)
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                check(all(torch.equal(g, p) for g, p in zip(got, want)),
+                      f"[autotune] {name} {label}: the tuned launch "
+                      f"differs from the plain version")
+            hits = {k: fam.labels(k, "hit").value - v
+                    for k, v in hits0.items()}
+            check(all(v > 0 for v in hits.values()),
+                  f"[autotune] ops missed the tuned table: hits {hits}")
+            for label, pack in (("pack", gb), ("subset", sub)):
+                m = tb.resolve_batch_method(pack, "auto")
+                check((m == "frontier") == routes[label]["use_ref"],
+                      f"[autotune] auto at the {label} resolved to {m} "
+                      f"against the tuned route {routes[label]['winner']}")
+                w = tb.batched_top_down_weights(pack, "auto")
+                check(torch.equal(w, tb.batched_top_down_weights(
+                    pack, "frontier")),
+                      f"[autotune] tuned route changed the {label} weights")
+            log(f"[autotune] reloaded table of {len(at.load_table())} "
+                f"entries: ops hits {hits}, every tuned launch == its "
+                f"plain version; auto follows the tuned routes; phase done "
+                f"in {time.perf_counter() - t_phase:.1f} s")
+        finally:
+            if old_env is None:
+                os.environ.pop(at.CACHE_ENV, None)
+            else:
+                os.environ[at.CACHE_ENV] = old_env
+            at.reset_table()
+
+
 def run(dev, n_corpora=N_CORPORA, n_files=N_FILES,
         tokens_per_file=TOKENS_PER_FILE, vocab=VOCAB,
         single_files=SINGLE_FILES):
@@ -1115,14 +1545,34 @@ def run(dev, n_corpora=N_CORPORA, n_files=N_FILES,
                        in enumerate(zip(sub_corpora, sub_oracles))],
             "single": [("single", scc, sfiles, swant)]}
     reset_launch_counts()
-    serve_phase(sets, vocab, dev)
+    specs = serve_phase(sets, vocab, dev)
     serve_counts = launch_counts()
     log(f"[serve] launches {serve_counts}")
 
+    # checkpoint and sharding: counts zeroed just before, read just after
+    reset_launch_counts()
+    ckpt_phase(sfiles, vocab, scc, swant, dev)
+    ckpt_counts = launch_counts()
+    log(f"[ckpt] launches {ckpt_counts}")
+    reset_launch_counts()
+    shard_phase(corpora, oracles, sub_corpora, sub_oracles, gb, specs, dev)
+    shard_counts = launch_counts()
+    log(f"[shard] launches {shard_counts}")
+
     records = kernel_phase(gb, sub, single, dev)
+    reset_launch_counts()
+    if dev.type == "cuda":
+        autotune_phase(gb, sub, single, records, dev)
+    else:
+        log("[autotune] skipped: the sweeps time the kernels on a card")
+    tune_counts = launch_counts()
+    log(f"[autotune] launches {tune_counts}")
     for r in records:
         r["launches"] = counts.get(r["name"], 0)
         r["serve_launches"] = serve_counts.get(r["name"], 0)
+        r["ckpt_launches"] = ckpt_counts.get(r["name"], 0)
+        r["shard_launches"] = shard_counts.get(r["name"], 0)
+        r["autotune_launches"] = tune_counts.get(r["name"], 0)
     return records
 
 
@@ -1151,18 +1601,25 @@ def main() -> int:
     lib = _common.build_library(verbose=True)
     log(f"[build] {lib.name} built in {time.perf_counter() - t0:.1f} s")
 
-    records = run(dev)
-    missing = [r["name"] for r in records if r["launches"] <= 0]
-    if missing:
-        print(f"chip_smoke: FAILED: the main path never launched {missing}",
-              file=sys.stderr)
-        return 1
-    missing = [r["name"] for r in records if r["name"] in SERVE_KERNELS
-               and r["serve_launches"] <= 0]
-    if missing:
-        print(f"chip_smoke: FAILED: the serving path never launched "
-              f"{missing}", file=sys.stderr)
-        return 1
+    # no tuned table reaches the measured phases: they launch the shipped
+    # shapes (the autotune phase writes and reads its own temporary table)
+    from repro_torch.kernels import autotune
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ[autotune.CACHE_ENV] = os.path.join(tmp, "no_table.json")
+        autotune.reset_table()
+        records = run(dev)
+    for field, path, needed in (
+            ("launches", "the main path", None),
+            ("serve_launches", "the serving path", SERVE_KERNELS),
+            ("ckpt_launches", "the checkpoint phase", CKPT_KERNELS),
+            ("shard_launches", "the sharding phase", SHARD_KERNELS),
+            ("autotune_launches", "the autotune phase", None)):
+        missing = [r["name"] for r in records if r[field] <= 0
+                   and (needed is None or r["name"] in needed)]
+        if missing:
+            print(f"chip_smoke: FAILED: {path} never launched {missing}",
+                  file=sys.stderr)
+            return 1
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

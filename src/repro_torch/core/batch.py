@@ -17,6 +17,19 @@ corpora), and every analytic runs over the whole batch at once:
   (kernels/propagate_fused.py);
 * ``auto`` — occupancy dispatch (``resolve_traversal_method``).
 
+DESIGN — corpus-sharded packs (:meth:`GrammarBatch.shard`, the port of the
+JAX package's ``shard_map`` path): a sharded pack holds one row-slice
+sub-pack per device of its mesh (``shard_packs``), with the padded dims of
+the whole pack on every shard, and ``n_real`` real rows (the rest repeat a
+real grammar to fill the last shard, distributed/shard_batch.py).  Every
+``batched_*`` entry and ``run_batched`` resolve the traversal method once,
+against the whole pack and its shard count, then run the unsharded engine
+on each sub-pack on its own device and host thread
+(``CorpusMesh.map``), gather the results in row order (tensors on the
+pack's first device) and drop the padding rows.  Nothing crosses shards,
+so each shard's round loop stops when its own corpora finish, and the
+results are bit-identical to the unsharded pack's.
+
 All six analytics (word count, sort, inverted index, term vector, sequence
 count, ranked inverted index) are bit-identical to the JAX package's
 ``run_batched``: every traversal count is integer-valued float32 far below
@@ -35,9 +48,10 @@ live on ``device`` (the card unless the caller passes ``device="cpu"``).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from dataclasses import field as dataclass_field
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -128,6 +142,15 @@ class GrammarBatch:
     # check_epochs is the loud guard against that.
     epochs: Optional[Tuple[int, ...]] = None
 
+    # corpus-sharded execution (module DESIGN note): the mesh the rows split
+    # over, the count of real rows when the pack was padded to a mesh
+    # multiple (None: all rows real), and one row-slice sub-pack per mesh
+    # device.  A sharded pack's own [N, ...] tensor fields are None: its
+    # rows live on its shards.
+    mesh: Any = None
+    n_real: Optional[int] = None
+    shard_packs: Tuple["GrammarBatch", ...] = ()
+
     # per-batch memo for host-side plans (keyed by plan name / window l)
     _plan_cache: dict = dataclass_field(default_factory=dict, repr=False,
                                         compare=False)
@@ -138,9 +161,9 @@ class GrammarBatch:
 
     @property
     def real(self) -> int:
-        """Rows that correspond to real corpora: all of them, since a pack
-        on one card carries no shard padding."""
-        return self.n
+        """Rows that correspond to real corpora (the rest is shard padding:
+        computed and discarded, never surfaced)."""
+        return self.n if self.n_real is None else self.n_real
 
     @property
     def real_gas(self) -> Tuple[GrammarArrays, ...]:
@@ -148,17 +171,54 @@ class GrammarBatch:
 
     @property
     def shards(self) -> int:
-        """Cards the pack spans: always 1 (sharding is not ported)."""
-        return 1
+        """Devices the pack spans (1 when unsharded)."""
+        return 1 if self.mesh is None else int(self.mesh.size)
 
     @property
     def signature(self) -> Tuple[int, ...]:
         """Pad signature, the JAX package's: packs with equal signatures
         share plan shapes; the serving layer keys its latency estimates and
         pack counters on it.  The trailing element is the shard count."""
+        rows = self.shard_packs[0] if self.shard_packs else self
         return (self.n, self.R_pad, self.E_pad, self.T_pad, self.F_pad,
-                self.V_pad, int(self.fedge_file.shape[1]), self.Tf_pad,
+                self.V_pad, int(rows.fedge_file.shape[1]), self.Tf_pad,
                 self.shards)
+
+    def shard(self, mesh, n_real: Optional[int] = None) -> "GrammarBatch":
+        """Split the pack row-wise over ``mesh`` (a
+        :class:`~repro_torch.distributed.CorpusMesh` whose size divides N;
+        ``distributed.shard_batch.shard_batch`` pads a corpus list to the
+        multiple).  Returns a new pack whose rows live in ``shard_packs``:
+        shard i holds rows ``[i * N / D, (i + 1) * N / D)`` on
+        ``mesh.devices[i]``, with this pack's padded dims and ELL plan
+        width.  Lazy plans are built per shard on demand."""
+        if self.mesh is not None:
+            raise ValueError("the pack is already sharded")
+        d = int(mesh.size)
+        if self.n % d:
+            raise ValueError(
+                f"batch of {self.n} corpora does not divide across {d} "
+                f"devices; pad first (distributed.shard_batch.shard_batch)")
+        if n_real is not None and not 0 < n_real <= self.n:
+            raise ValueError(f"n_real={n_real} out of range for N={self.n}")
+        m = self.n // d
+        K = self.ell_plan_width()
+        tensors = [f.name for f in dataclasses.fields(self)
+                   if isinstance(getattr(self, f.name), torch.Tensor)]
+        rows = ("num_rules", "vocab_sizes", "num_files")
+        subs = []
+        for i, dev in enumerate(mesh.devices):
+            s, e = i * m, (i + 1) * m
+            kw = {name: getattr(self, name)[s:e].to(dev) for name in tensors}
+            kw.update({name: getattr(self, name)[s:e] for name in rows})
+            subs.append(dataclasses.replace(
+                self, gas=self.gas[s:e], device=dev,
+                epochs=None if self.epochs is None else self.epochs[s:e],
+                _plan_cache={("ell_width",): K}, **kw))
+        return dataclasses.replace(
+            self, device=mesh.devices[0], mesh=mesh, n_real=n_real,
+            shard_packs=tuple(subs), _plan_cache={},
+            **{name: None for name in tensors})
 
     def check_epochs(self, current: Sequence[int]) -> None:
         """Raise :class:`StaleGrammarError` if any source corpus has moved
@@ -187,6 +247,19 @@ class GrammarBatch:
 
     def _place(self, arr: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(arr, device=self.device)
+
+    def map_shards(self, fn: Callable[["GrammarBatch"], Any]):
+        """``fn`` over the shards' sub-packs, each on its own device and
+        host thread, results gathered in row order with the padding rows
+        dropped: tensors concatenated on this pack's device, lists
+        concatenated (module DESIGN note)."""
+        parts = self.mesh.map(fn, self.shard_packs)
+        if isinstance(parts[0], torch.Tensor):
+            return torch.cat([p.to(self.device) for p in parts])[: self.real]
+        out: List = []
+        for p in parts:
+            out.extend(p)
+        return out[: self.real]
 
     @property
     def total_edges(self) -> int:
@@ -430,16 +503,17 @@ PER_FILE_KINDS = ("term_vector", "inverted_index", "ranked_inverted_index")
 
 
 def resolve_traversal_method(method: str, *, n: int, rows: int, k: int,
-                             edges: int, per_file: bool = False,
-                             f: int = 1) -> str:
+                             edges: int, shards: int = 1,
+                             per_file: bool = False, f: int = 1) -> str:
     """Resolve a requested traversal method against the pack's shape gates.
 
     Pure over dimensions (n/rows/k are the pack's N, R_pad and ELL plan
     width; ``f`` is F_pad for per-file traversals), with the JAX package's
     rules:
 
-    * ``auto`` — occupancy dispatch (kernels.ops.ell_batched_use_ref), then
-      the fused path when ``ell_fused_use_kernel`` admits the rule count;
+    * ``auto`` — occupancy dispatch (kernels.ops.ell_batched_use_ref, per
+      shard), then the fused path when ``ell_fused_use_kernel`` admits the
+      rule count;
     * explicit ELL methods degrade to their segment_sum base when the dense
       plan itself is ineligible (width / absolute-entry safety valves, and
       the vector-payload budget for per-file traversals);
@@ -447,7 +521,7 @@ def resolve_traversal_method(method: str, *, n: int, rows: int, k: int,
       refuses or the traversal is per-file (the fused kernel is scalar).
     """
     if method == "auto":
-        if kops.ell_batched_use_ref(edges, n, rows, k):
+        if kops.ell_batched_use_ref(edges, n, rows, k, shards=shards):
             return "frontier"
         if per_file:
             if not kops.ell_vector_plan_ok(n, rows, k, f):
@@ -484,7 +558,8 @@ def resolve_batch_method(gb: GrammarBatch, method: str,
         return method
     return resolve_traversal_method(
         method, n=gb.n, rows=gb.R_pad, k=gb.ell_plan_width(),
-        edges=gb.total_edges, per_file=per_file, f=gb.F_pad)
+        edges=gb.total_edges, shards=gb.shards, per_file=per_file,
+        f=gb.F_pad)
 
 
 def _frontier_ell_weights(ell_src, ell_freq, in_deg) -> torch.Tensor:
@@ -538,6 +613,9 @@ def batched_top_down_weights(gb: GrammarBatch,
     launch) and ``auto`` (``resolve_traversal_method``).
     """
     method = resolve_batch_method(gb, method)
+    if gb.mesh is not None:
+        return gb.map_shards(lambda sub: batched_top_down_weights(sub,
+                                                                  method))
     if method in ("frontier", "top_down", "bottom_up"):
         return _frontier_weights(gb.edge_parent, gb.edge_child, gb.edge_freq,
                                  gb.edge_valid, gb.in_deg)[0]
@@ -639,6 +717,9 @@ def batched_per_file_weights(gb: GrammarBatch,
     as the scalar traversals; ``frontier_fused`` runs its per-round ELL base
     here (the fused kernel is scalar-payload)."""
     method = resolve_batch_method(gb, method, per_file=True)
+    if gb.mesh is not None:
+        return gb.map_shards(lambda sub: batched_per_file_weights(sub,
+                                                                  method))
     if method in ("frontier", "top_down", "bottom_up"):
         return _per_file_frontier_weights(
             gb.edge_parent, gb.edge_child, gb.edge_freq, gb.edge_valid,
@@ -677,6 +758,9 @@ def batched_word_count(gb: GrammarBatch, method: str = "frontier",
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
+    if gb.mesh is not None:
+        m = resolve_batch_method(gb, method)
+        return gb.map_shards(lambda sub: batched_word_count(sub, m, backend))
     w = batched_top_down_weights(gb, method=method)
     vals = gb.tw_cnt * torch.gather(w, 1, gb.tw_rule)
     if backend == "kernel":
@@ -689,6 +773,9 @@ def batched_sort_words(gb: GrammarBatch, method: str = "frontier",
                        ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Per corpus (word_ids int32, counts) sorted by frequency desc, ties by
     word id (stable); the final argsort runs on true sizes."""
+    if gb.mesh is not None:
+        m = resolve_batch_method(gb, method)
+        return gb.map_shards(lambda sub: batched_sort_words(sub, m, backend))
     wc = batched_word_count(gb, method=method, backend=backend)
     out = []
     for i, ga in enumerate(gb.gas):
@@ -713,6 +800,9 @@ def _term_vector_from_weights(Wf, tw_rule, tw_word, tw_cnt, fword_file,
 def batched_term_vector(gb: GrammarBatch,
                         method: str = "frontier") -> torch.Tensor:
     """tv[i, f, v] — dense per-file counts, all corpora at once."""
+    if gb.mesh is not None:
+        m = resolve_batch_method(gb, method, per_file=True)
+        return gb.map_shards(lambda sub: batched_term_vector(sub, m))
     Wf = batched_per_file_weights(gb, method=method)
     return _term_vector_from_weights(
         Wf, gb.tw_rule, gb.tw_word, gb.tw_cnt,
@@ -728,6 +818,10 @@ def batched_ranked_inverted_index(gb: GrammarBatch, method: str = "frontier"
                                   ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Per corpus (ranking [V, F] int32, counts [V, F]) — true per-corpus
     shapes, files ranked by count desc, ties by file id (stable)."""
+    if gb.mesh is not None:
+        m = resolve_batch_method(gb, method, per_file=True)
+        return gb.map_shards(lambda sub: batched_ranked_inverted_index(sub,
+                                                                       m))
     tv = batched_term_vector(gb, method=method)
     out = []
     for i, ga in enumerate(gb.gas):
@@ -740,10 +834,11 @@ def batched_ranked_inverted_index(gb: GrammarBatch, method: str = "frontier"
 
 def unbatch(gb: GrammarBatch, packed: torch.Tensor,
             kind: str = "word_count") -> List[np.ndarray]:
-    """Slice a packed ``[N, ...]`` result back to per-corpus true shapes."""
+    """Slice a packed result (one row per real corpus and any padding
+    rows after them) back to per-corpus true shapes."""
     host = packed.cpu().numpy()
     out = []
-    for i, ga in enumerate(gb.gas):
+    for i, ga in enumerate(gb.real_gas):
         if kind == "word_count":
             out.append(host[i, : ga.vocab_size])
         elif kind in ("term_vector", "inverted_index"):
@@ -903,6 +998,9 @@ def batched_sequence_count(gb: GrammarBatch, l: int = 3,
     extraction is per corpus (ragged output)."""
     if l < 2:
         raise ValueError("sequence_count needs l >= 2")
+    if gb.mesh is not None:
+        m = resolve_batch_method(gb, method)
+        return gb.map_shards(lambda sub: batched_sequence_count(sub, l, m))
     weights = batched_top_down_weights(gb, method=method)
     head, tail, stream = _padded_sequence_plans(gb, l)
     stok, seg, counts = _count_windows_batched(head, tail, weights,
@@ -934,7 +1032,12 @@ METHODS = ("frontier", "leveled", "frontier_ell", "leveled_ell",
 def run_batched(gb: GrammarBatch, kind: str, method: str = "frontier",
                 backend: str = "torch", l: int = 3) -> List:
     """Dispatch one analytics kind over the whole batch; returns a list of
-    per-corpus numpy results shaped exactly like the JAX package's."""
+    per-corpus numpy results shaped exactly like the JAX package's (real
+    corpora only: a sharded pack's padding rows are dropped)."""
+    if gb.mesh is not None and kind in ANALYTICS_KINDS:
+        m = resolve_batch_method(gb, method, per_file=kind in PER_FILE_KINDS)
+        return gb.map_shards(lambda sub: run_batched(sub, kind, m, backend,
+                                                     l))
     if kind == "word_count":
         return unbatch(gb, batched_word_count(gb, method=method,
                                               backend=backend), "word_count")

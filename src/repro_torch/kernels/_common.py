@@ -102,6 +102,16 @@ def require_hopper(dev: torch.device) -> None:
                            f"device {idx} is sm_{cap[0]}{cap[1]}")
 
 
+def check_launch_shape(name: str, value: int,
+                       candidates: Sequence[int]) -> None:
+    """Raise unless ``value`` is one of the launch shapes a kernel is
+    built for (checked before the launch; a refused launch is never
+    caught and retried)."""
+    if int(value) not in candidates:
+        raise ValueError(f"{name}={value} is not a launch shape of this "
+                         f"kernel; expected one of {tuple(candidates)}")
+
+
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
                       shape: Sequence[int], dev: torch.device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
@@ -121,16 +131,19 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
 # Launch counters                                                          #
 # ----------------------------------------------------------------------- #
 class LaunchCounter:
-    """Plain integer count of one kernel's launches."""
+    """Integer count of one kernel's launches (thread-safe: the shards of a
+    sharded pack launch from one host thread each)."""
 
-    __slots__ = ("name", "count")
+    __slots__ = ("name", "count", "_lock")
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        self._lock = threading.Lock()
 
     def inc(self) -> None:
-        self.count += 1
+        with self._lock:
+            self.count += 1
 
 
 _COUNTERS: Dict[str, LaunchCounter] = {}
@@ -243,10 +256,14 @@ def kernel_fn(symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     ``cudaError_t`` of its launch as an int).  Memoized per symbol."""
     fn = _FNS.get(symbol)
     if fn is None:
-        fn = getattr(library(), symbol)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _FNS[symbol] = fn
+        lib = library()
+        with _LIB_LOCK:
+            fn = _FNS.get(symbol)
+            if fn is None:
+                fn = getattr(lib, symbol)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+                _FNS[symbol] = fn
     return fn
 
 

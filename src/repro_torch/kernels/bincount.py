@@ -24,23 +24,30 @@ from . import _common
 launches = _common.launch_counter("weighted_bincount")
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
-             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+#: Threads a block (the kernel is instantiated for each): the shipped
+#: default and the shapes the autotuner sweeps.
+DEFAULT_THREADS = 256
+THREADS_CANDIDATES = (128, 256, 512, 1024)
 
 _ID_TYPES = (torch.int32, torch.int64)
 
 
 def weighted_bincount_cuda(ids: torch.Tensor, vals: torch.Tensor,
                            nbins: int,
-                           out: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           out: Optional[torch.Tensor] = None,
+                           threads: int = DEFAULT_THREADS) -> torch.Tensor:
     """Per row, out[i, b] = sum(vals[i][ids[i] == b]) for b in [0, nbins),
     on the card.
 
     ids: [T] or [rows, T] int32 or int64; vals: float32 of the same shape
     — contiguous, on one CUDA device.  Returns [nbins] for 1-D inputs,
     [rows, nbins] otherwise; ``out``, where given, is that contiguous
-    float32 tensor, and the kernel overwrites it.
+    float32 tensor, and the kernel overwrites it.  ``threads``: threads a
+    block, one of ``THREADS_CANDIDATES``.
     """
+    _common.check_launch_shape("threads", threads, THREADS_CANDIDATES)
     dev = ids.device
     if not 0 <= nbins < 2 ** 31:
         raise ValueError(f"nbins={nbins} outside the kernel's int32 range")
@@ -61,7 +68,7 @@ def weighted_bincount_cuda(ids: torch.Tensor, vals: torch.Tensor,
         _common.check_cuda_tensor("out", out, torch.float32, shape, dev)
     fn = _common.kernel_fn("repro_weighted_bincount", _ARGTYPES)
     err = fn(ids.data_ptr(), vals.data_ptr(), out.data_ptr(), rows, t,
-             nbins, ids.element_size(), _common.stream_ptr(dev))
+             nbins, ids.element_size(), threads, _common.stream_ptr(dev))
     _common.check_launch(err, "weighted_bincount")
     launches.inc()
     return out

@@ -14,9 +14,9 @@
 // atomics to the hot bins of a row serialise in L2.  Design:
 //   - the entry point zeroes the output with cudaMemsetAsync on the
 //     caller's stream (no separate fill from the wrapper), then launches one
-//     kernel for the whole batch: a block takes 512-element pieces of a
-//     row, so no id needs a per-row offset computed outside;
-//   - a lane takes two elements a step, 256 apart, so each load
+//     kernel for the whole batch: a block takes pieces of 2 * kThreads
+//     elements of a row, so no id needs a per-row offset computed outside;
+//   - a lane takes two elements a step, kThreads apart, so each load
 //     instruction of a warp reads 128 (int32) or 256 (int64) contiguous
 //     bytes.  On the card this ran no slower than one 8- or 16-byte vector
 //     load a lane, and two elements a lane faster than four: each element
@@ -27,14 +27,16 @@
 //   - zero values and ids outside [0, nbins) take no atomic.
 // All values on the engine path are integer-valued float32 below 2^24, so
 // the order of the additions cannot change the result.
+//
+// Launch shape: kThreads a block, a template argument instantiated for
+// 128, 256, 512 and 1024 (256 unless the autotuner's table says
+// otherwise, kernels/autotune.py).
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kThreads = 256;
 constexpr int kEPT = 2;                    // elements a thread and step
-constexpr int kPiece = kThreads * kEPT;    // elements a block step takes
 
 // Sum `v` over the lanes holding the same `key` and add it into
 // row_out[key] once, from the group's lowest lane.  Every lane of the warp
@@ -65,13 +67,14 @@ __device__ __forceinline__ int bin_key(Id id, float v, int nbins,
   return take ? static_cast<int>(id) : -1 - lane;
 }
 
-template <typename Id>
+template <typename Id, int kThreads>
 __global__ void __launch_bounds__(kThreads)
 weighted_bincount_kernel(const Id* __restrict__ ids,
                          const float* __restrict__ vals,
                          float* __restrict__ out, long long t_len,
                          long long pieces_per_row, long long pieces,
                          int nbins) {
+  constexpr int kPiece = kThreads * kEPT;  // elements a block step takes
   const int lane = threadIdx.x & 31;
   for (long long pc = blockIdx.x; pc < pieces; pc += gridDim.x) {
     const long long row = pc / pieces_per_row;
@@ -94,36 +97,60 @@ weighted_bincount_kernel(const Id* __restrict__ ids,
   }
 }
 
-template <typename Id>
+template <typename Id, int kThreads>
 cudaError_t launch(const void* ids, const void* vals, void* out,
                    long long rows, long long t_len, int nbins,
                    cudaStream_t stream) {
+  constexpr int kPiece = kThreads * kEPT;
   const long long ppr = (t_len + kPiece - 1) / kPiece;
   const long long pieces = rows * ppr;
   long long blocks = pieces;
   if (blocks > 132 * 16) blocks = 132 * 16;     // grid-stride beyond that
-  weighted_bincount_kernel<Id>
+  weighted_bincount_kernel<Id, kThreads>
       <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
           static_cast<const Id*>(ids), static_cast<const float*>(vals),
           static_cast<float*>(out), t_len, ppr, pieces, nbins);
   return cudaGetLastError();
 }
 
+template <typename Id>
+cudaError_t launch_threads(const void* ids, const void* vals, void* out,
+                           long long rows, long long t_len, int nbins,
+                           int threads, cudaStream_t stream) {
+  switch (threads) {
+    case 128:
+      return launch<Id, 128>(ids, vals, out, rows, t_len, nbins, stream);
+    case 256:
+      return launch<Id, 256>(ids, vals, out, rows, t_len, nbins, stream);
+    case 512:
+      return launch<Id, 512>(ids, vals, out, rows, t_len, nbins, stream);
+    case 1024:
+      return launch<Id, 1024>(ids, vals, out, rows, t_len, nbins, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // ids: [rows, t_len] int32 (id_bytes 4) or int64 (id_bytes 8); vals:
-// [rows, t_len] float32; out: [rows, nbins] float32, zeroed here.
+// [rows, t_len] float32; out: [rows, nbins] float32, zeroed here; threads:
+// 128, 256, 512 or 1024 a block.
 extern "C" int repro_weighted_bincount(const void* ids, const void* vals,
                                        void* out, long long rows,
                                        long long t_len, int nbins,
-                                       int id_bytes, void* stream) {
+                                       int id_bytes, int threads,
+                                       void* stream) {
   if (rows == 0 || nbins == 0) return 0;
+  if (threads != 128 && threads != 256 && threads != 512 && threads != 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(
       out, 0, static_cast<size_t>(rows) * nbins * sizeof(float), st);
   if (err != cudaSuccess || t_len == 0) return static_cast<int>(err);
-  err = id_bytes == 8
-            ? launch<long long>(ids, vals, out, rows, t_len, nbins, st)
-            : launch<int>(ids, vals, out, rows, t_len, nbins, st);
+  err = id_bytes == 8 ? launch_threads<long long>(ids, vals, out, rows, t_len,
+                                                  nbins, threads, st)
+                      : launch_threads<int>(ids, vals, out, rows, t_len,
+                                            nbins, threads, st);
   return static_cast<int>(err);
 }

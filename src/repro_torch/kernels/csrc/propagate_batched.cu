@@ -20,6 +20,9 @@
 // the card gathers straight from device memory / L2.  Values on the engine
 // path are integer-valued float32 below 2^24, so any summation order is
 // exact and the result equals the plain version bit for bit.
+//
+// Launch shape: `threads` a block (a multiple of 32 up to 1024; 256 unless
+// the autotuner's table says otherwise, kernels/autotune.py).
 #include <cuda_runtime.h>
 
 #include "ell_common.cuh"
@@ -51,10 +54,11 @@ __global__ void ell_propagate_batched_kernel(
 extern "C" int repro_ell_propagate_batched(
     const void* w, const void* active, const void* src, const void* freq,
     void* delta, void* seen, int n, int R, int rows, int k, int lanes,
-    void* stream) {
+    int threads, void* stream) {
   const long long total_rows = static_cast<long long>(n) * rows;
   if (total_rows == 0) return 0;
-  const int threads = 256;
+  if (threads < 32 || threads > 1024 || threads % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (total_rows * lanes + threads - 1) / threads;
   ell_propagate_batched_kernel<<<static_cast<unsigned>(blocks), threads, 0,
                                  static_cast<cudaStream_t>(stream)>>>(

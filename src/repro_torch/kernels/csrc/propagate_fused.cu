@@ -59,8 +59,11 @@
 // w0, in_deg, src and freq use __ldg.
 //
 // Grid: kBlock threads a block, as many blocks as the occupancy API says
-// fit on an SM, times the SM count (cached per device) — every SM of the
-// card — or fewer when the plan has fewer lane groups of rows than that.
+// fit on an SM, times the SM count (cached per device and block size) —
+// every SM of the card — or fewer when the plan has fewer lane groups of
+// rows than that.  kBlock is a template argument instantiated for 128,
+// 256, 512 and 1024 (512 unless the autotuner's table says otherwise,
+// kernels/autotune.py).
 // Limits: scratch is 60 bytes a rule (the 32-byte stash, w buffer 1, two
 // masks, cur, ever, live length, a list slot) plus 4 * (2 + (max_rounds +
 // 1) * N) bytes of control words, and N * R must stay below 2^31.  The
@@ -73,8 +76,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kBlock = 512;
-constexpr int kWarps = kBlock / 32;
+constexpr int kBlockSizes[] = {128, 256, 512, 1024};
+constexpr int kVariants = 4;
 constexpr int kThreadRow = 4;          // live entries one thread gathers
 constexpr int kWarpRow = 4 * 32;       // ... one warp gathers, 4 a lane
 constexpr int kMaxDevices = 64;
@@ -174,8 +177,10 @@ __device__ __forceinline__ void gather_staged(const float* wc,
   }
 }
 
+template <int kBlock>
 __global__ void __launch_bounds__(kBlock)
     ell_frontier_fused_kernel(FusedArgs a) {
+  constexpr int kWarps = kBlock / 32;
   cg::grid_group grid = cg::this_grid();
   const int rows = a.n * a.R;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -408,8 +413,13 @@ __global__ void __launch_bounds__(kBlock)
     if (a.rounds[row / a.R] & 1) a.w[row] = a.w1[row];
 }
 
-int g_blocks_per_sm[kMaxDevices];
+int g_blocks_per_sm[kVariants][kMaxDevices];
 int g_sms[kMaxDevices];
+
+template <int kBlock>
+const void* kernel_of() {
+  return reinterpret_cast<const void*>(ell_frontier_fused_kernel<kBlock>);
+}
 
 }  // namespace
 
@@ -418,36 +428,51 @@ int g_sms[kMaxDevices];
 // 2 + (max_rounds + 1) * n int32 that the kernel zeroes; vec: freq is read
 // as float4 (k % 4 == 0, freq 16-byte aligned), lanes counted in float4s;
 // grid_out: three host ints that receive the blocks launched, the
-// co-resident blocks per SM and the SM count.
+// co-resident blocks per SM and the SM count; block: threads a block, 128,
+// 256, 512 or 1024.
 extern "C" int repro_ell_frontier_fused(
     const void* w0, const void* in_deg, const void* src, const void* freq,
     void* w, void* scratch, void* ctl, void* rounds, int n, int R, int k,
-    int lanes, int vec, int max_rounds, void* grid_out, void* stream) {
+    int lanes, int vec, int max_rounds, int block, void* grid_out,
+    void* stream) {
+  int variant = -1;
+  for (int v = 0; v < kVariants; ++v)
+    if (kBlockSizes[v] == block) variant = v;
+  if (variant < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = block == 128   ? kernel_of<128>()
+                       : block == 256 ? kernel_of<256>()
+                       : block == 512 ? kernel_of<512>()
+                                      : kernel_of<1024>();
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (g_blocks_per_sm[dev] == 0) {
+  // the cache is filled by whichever host thread launches first (the
+  // shards of a sharded pack launch from one thread each): the SM count
+  // is published before the block count that marks the entry as filled
+  int* per_sm_slot = &g_blocks_per_sm[variant][dev];
+  int per_sm = __atomic_load_n(per_sm_slot, __ATOMIC_ACQUIRE);
+  if (per_sm == 0) {
     int blocks = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, ell_frontier_fused_kernel, kBlock, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        block, 0);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (blocks <= 0 || sms <= 0)
       return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-    g_sms[dev] = sms;
-    g_blocks_per_sm[dev] = blocks;
+    __atomic_store_n(&g_sms[dev], sms, __ATOMIC_RELAXED);
+    __atomic_store_n(per_sm_slot, blocks, __ATOMIC_RELEASE);
+    per_sm = blocks;
   }
   int* grid_info = static_cast<int*>(grid_out);
   grid_info[0] = 0;
-  grid_info[1] = g_blocks_per_sm[dev];
+  grid_info[1] = per_sm;
   grid_info[2] = g_sms[dev];
   if (n == 0 || R == 0 || k == 0) return 0;
-  const long long full =
-      static_cast<long long>(g_blocks_per_sm[dev]) * g_sms[dev];
+  const long long full = static_cast<long long>(per_sm) * g_sms[dev];
   const long long rows = static_cast<long long>(n) * R;
-  const long long want = (rows * lanes + kBlock - 1) / kBlock;
+  const long long want = (rows * lanes + block - 1) / block;
   const int blocks = static_cast<int>(want < full ? want : full);
   float* sc = static_cast<float*>(scratch);
   const long long plane = rows;
@@ -478,6 +503,6 @@ extern "C" int repro_ell_frontier_fused(
   void* args[] = {&a};
   grid_info[0] = blocks;
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(ell_frontier_fused_kernel), dim3(blocks),
-      dim3(kBlock), args, 0, static_cast<cudaStream_t>(stream)));
+      kernel, dim3(blocks), dim3(block), args, 0,
+      static_cast<cudaStream_t>(stream)));
 }

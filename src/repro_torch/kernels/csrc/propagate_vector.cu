@@ -39,18 +39,21 @@
 // behind the compaction, or forced more blocks a SM, ran slower.  The TPU
 // kernel's rule-chunk and F-block grid axes existed to fit VMEM and are
 // gone.
+//
+// Launch shape: kWarps warps a block, a template argument instantiated for
+// 2, 4, 8 and 16 (8 unless the autotuner's table says otherwise,
+// kernels/autotune.py); the shared lists take 2 KB a warp at EPL 8.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = 8;          // warps per block
 
 // EPL: plan entries a lane reads per chunk — 8 as two 16-byte loads
 // (K % 8 == 0, freq 16-byte aligned), else 1.  VW: W rows gathered and
 // delta rows written 16 bytes a lane (F % 4 == 0, W 16-byte aligned; delta
 // is allocated aligned).
-template <int EPL, bool VW>
+template <int kWarps, int EPL, bool VW>
 __global__ void __launch_bounds__(kWarps * 32)
 ell_propagate_vector_kernel(
     const float* __restrict__ W, const float* __restrict__ active,
@@ -194,7 +197,7 @@ ell_propagate_vector_kernel(
   if (gl == 0 && my_valid) seen[my_row] = s;
 }
 
-template <int EPL, bool VW>
+template <int kWarps, int EPL, bool VW>
 cudaError_t launch(const void* W, const void* active, const void* src,
                    const void* freq, void* delta, void* seen, int n, int R,
                    int rows, int k, int F, int G, int L,
@@ -202,7 +205,7 @@ cudaError_t launch(const void* W, const void* active, const void* src,
   const unsigned total = static_cast<unsigned>(n) * rows;
   const unsigned per_block = kWarps * (32 / G);
   const unsigned blocks = (total + per_block - 1) / per_block;
-  ell_propagate_vector_kernel<EPL, VW>
+  ell_propagate_vector_kernel<kWarps, EPL, VW>
       <<<blocks, kWarps * 32, 0, stream>>>(
           static_cast<const float*>(W), static_cast<const float*>(active),
           static_cast<const int*>(src), static_cast<const float*>(freq),
@@ -211,29 +214,53 @@ cudaError_t launch(const void* W, const void* active, const void* src,
   return cudaGetLastError();
 }
 
+template <int kWarps>
+cudaError_t launch_warps(const void* W, const void* active, const void* src,
+                         const void* freq, void* delta, void* seen, int n,
+                         int R, int rows, int k, int F, int G, int L, int epl,
+                         int vw, cudaStream_t st) {
+  if (epl == 8)
+    return vw ? launch<kWarps, 8, true>(W, active, src, freq, delta, seen, n,
+                                        R, rows, k, F, G, L, st)
+              : launch<kWarps, 8, false>(W, active, src, freq, delta, seen,
+                                         n, R, rows, k, F, G, L, st);
+  return vw ? launch<kWarps, 1, true>(W, active, src, freq, delta, seen, n, R,
+                                      rows, k, F, G, L, st)
+            : launch<kWarps, 1, false>(W, active, src, freq, delta, seen, n,
+                                       R, rows, k, F, G, L, st);
+}
+
 }  // namespace
 
 // epl: the plan entries a lane reads per chunk (8 where the caller found
 // K % 8 == 0 and freq 16-byte aligned, else 1); vw: 1 where F % 4 == 0 and
 // W is 16-byte aligned; G, L: the lanes a row takes in the row pass and
 // the lanes an entry takes in the gather (powers of two <= 32, from the
-// wrapper).  N * rows < 2^31.
+// wrapper); warps: 2, 4, 8 or 16 a block.  N * rows < 2^31.
 extern "C" int repro_ell_propagate_vector(
     const void* W, const void* active, const void* src, const void* freq,
     void* delta, void* seen, int n, int R, int rows, int k, int F, int G,
-    int L, int epl, int vw, void* stream) {
+    int L, int epl, int vw, int warps, void* stream) {
   if (n == 0 || rows == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (epl == 8)
-    err = vw ? launch<8, true>(W, active, src, freq, delta, seen, n, R, rows,
-                               k, F, G, L, st)
-             : launch<8, false>(W, active, src, freq, delta, seen, n, R,
-                                rows, k, F, G, L, st);
-  else
-    err = vw ? launch<1, true>(W, active, src, freq, delta, seen, n, R, rows,
-                               k, F, G, L, st)
-             : launch<1, false>(W, active, src, freq, delta, seen, n, R,
-                                rows, k, F, G, L, st);
-  return static_cast<int>(err);
+  switch (warps) {
+    case 2:
+      return static_cast<int>(launch_warps<2>(
+          W, active, src, freq, delta, seen, n, R, rows, k, F, G, L, epl, vw,
+          st));
+    case 4:
+      return static_cast<int>(launch_warps<4>(
+          W, active, src, freq, delta, seen, n, R, rows, k, F, G, L, epl, vw,
+          st));
+    case 8:
+      return static_cast<int>(launch_warps<8>(
+          W, active, src, freq, delta, seen, n, R, rows, k, F, G, L, epl, vw,
+          st));
+    case 16:
+      return static_cast<int>(launch_warps<16>(
+          W, active, src, freq, delta, seen, n, R, rows, k, F, G, L, epl, vw,
+          st));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

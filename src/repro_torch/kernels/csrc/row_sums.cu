@@ -22,6 +22,9 @@
 // gathers w straight from device memory / L2.  On the engine path every
 // value is integer-valued float32 below 2^24, so any summation order gives
 // the plain version's result bit for bit.
+//
+// Launch shape: `threads` a block (a multiple of 32 up to 1024; 256 unless
+// the autotuner's table says otherwise, kernels/autotune.py).
 #include <cuda_runtime.h>
 
 #include "ell_common.cuh"
@@ -47,9 +50,11 @@ __global__ void ell_row_sums_kernel(const float* __restrict__ w,
 
 extern "C" int repro_ell_row_sums(const void* w, const void* src,
                                   const void* freq, void* out, int rows,
-                                  int k, int lanes, void* stream) {
+                                  int k, int lanes, int threads,
+                                  void* stream) {
   if (rows == 0) return 0;
-  const int threads = 256;
+  if (threads < 32 || threads > 1024 || threads % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks =
       (static_cast<long long>(rows) * lanes + threads - 1) / threads;
   ell_row_sums_kernel<<<static_cast<unsigned>(blocks), threads, 0,

@@ -10,9 +10,14 @@ asks ``ell_batched_use_ref`` whether a round should run on the dense
 ``[N, R, K]`` ELL edge plan or stay on the COO segment_sum path.  The
 predicate is an occupancy model over (edge count, plan width K, batch
 width N).  The constants and predicates keep the JAX package's values, so
-every traversal method resolves exactly as it does there.  The tuned table
-(kernels/autotune.py there) is not part of the port yet: every lookup
-behaves as a miss and the static heuristics decide.
+every traversal method resolves exactly as it does there.
+
+The tuned table (kernels/autotune.py) is consulted as the JAX package
+consults its own: an ``ell_vs_seg`` entry overrides the occupancy
+heuristics, and each kernel's launch shape is the tuned one merged over
+the shipped default (``_blocks``).  A table miss launches exactly the
+shipped shapes.  Every lookup is counted on
+``repro_kernel_tuned_table_total{kind, result}``.
 """
 
 from __future__ import annotations
@@ -21,7 +26,12 @@ import torch
 
 from repro_torch.obs import global_registry
 
-from . import _common, ref
+from . import _common, autotune, ref
+from . import bincount as _bincount
+from . import propagate as _propagate
+from . import propagate_batched as _batched
+from . import propagate_fused as _fused
+from . import propagate_vector as _vector
 from .bincount import weighted_bincount_cuda
 from .propagate_batched import ell_propagate_batched_cuda
 from .propagate import ell_row_sums_cuda
@@ -54,20 +64,58 @@ ELL_PLAN_MAX_ENTRIES = 1 << 27
 ELL_FUSED_MAX_RULES = 1 << 18
 
 
-_DISPATCH = {}
+# the shipped launch shapes (what a table miss launches)
+_BATCHED_DEFAULTS = {"threads": _batched.DEFAULT_THREADS}
+_FUSED_DEFAULTS = {"block": _fused.DEFAULT_BLOCK}
+_VECTOR_DEFAULTS = {"warps": _vector.DEFAULT_WARPS}
+_BINCOUNT_DEFAULTS = {"threads": _bincount.DEFAULT_THREADS}
+_ROW_SUMS_DEFAULTS = {"threads": _propagate.DEFAULT_THREADS}
+
+_CHILDREN = {}
+
+
+def _count(family: str, help_: str, labelnames, values) -> None:
+    """Add one to a labelled counter of the process registry (the child is
+    looked up once per label values and kept)."""
+    key = (family,) + tuple(values)
+    child = _CHILDREN.get(key)
+    if child is None:
+        child = global_registry().counter(family, help_,
+                                          labelnames).labels(*values)
+        _CHILDREN[key] = child
+    child.inc()
 
 
 def _count_dispatch(decision: str, path: str) -> None:
-    """Meter one dispatch decision on the process registry (the labelled
-    child is looked up once per (decision, path) and kept)."""
-    child = _DISPATCH.get((decision, path))
-    if child is None:
-        child = global_registry().counter(
-            "repro_kernel_dispatch_total",
-            "kernel dispatch decisions at plan/call time",
-            ("decision", "path")).labels(decision, path)
-        _DISPATCH[(decision, path)] = child
-    child.inc()
+    """Meter one dispatch decision."""
+    _count("repro_kernel_dispatch_total",
+           "kernel dispatch decisions at plan/call time",
+           ("decision", "path"), (decision, path))
+
+
+def _count_tuned(kind: str, result: str) -> None:
+    """Meter one tuned-table lookup (``hit`` / ``miss``) per kind."""
+    _count("repro_kernel_tuned_table_total",
+           "autotune tuned-table lookups by result", ("kind", "result"),
+           (kind, result))
+
+
+def _blocks(kind: str, dims, defaults: dict, dev: torch.device) -> dict:
+    """The launch shape of one call: the tuned shape of ``(card, kind,
+    shape_bucket(*dims))`` merged over the shipped ``defaults`` (unknown
+    keys dropped; the wrapper checks the values before it launches).  An
+    empty table costs one lookup of it: no key is built."""
+    tuned = (autotune.tuned_blocks(kind, autotune.shape_bucket(*dims),
+                                   backend=autotune.backend_name(dev))
+             if autotune.load_table() else {})
+    _count_tuned(kind, "hit" if tuned else "miss")
+    if not tuned:
+        return defaults
+    merged = dict(defaults)
+    for key, val in tuned.items():
+        if key in merged:
+            merged[key] = val
+    return merged
 
 
 def _exec_path(t: torch.Tensor) -> str:
@@ -83,13 +131,29 @@ def bincount_batch_rows(n: int, nbins: int) -> int:
     return max(1, BINCOUNT_BATCH_FLAT_LIMIT // nbins)
 
 
-def ell_batched_use_ref(num_edges: int, n: int, rows: int, k: int) -> bool:
+def ell_batched_use_ref(num_edges: int, n: int, rows: int, k: int,
+                        shards: int = 1) -> bool:
     """True when a batched propagation round should stay on segment_sum:
     tiny batches, very wide plans (K beyond ELL_BATCH_MAX_WIDTH) and plans
-    so sparse that the K-padded gather does >256x the real edge work."""
-    use_ref = (n * rows < ELL_BATCH_MIN_ROWS
-               or k > ELL_BATCH_MAX_WIDTH
-               or num_edges / max(n * rows * k, 1) < ELL_BATCH_MIN_FILL)
+    so sparse that the K-padded gather does >256x the real edge work.
+
+    ``shards`` > 1 judges the launch-overhead gate per shard: a sharded
+    pack runs each shard's N / shards rows on its own card, so that is the
+    width a launch must amortize; fill is a ratio and shard-invariant.  A
+    tuned ``ell_vs_seg`` entry for the per-shard bucket (both engine paths
+    timed on this machine, autotune.tune_ell_vs_seg) overrides all of the
+    static heuristics."""
+    shards = max(int(shards), 1)
+    tuned = autotune.tuned_use_ref(
+        "ell_vs_seg", autotune.shape_bucket(max(n // shards, 1), rows, k))
+    if tuned is not None:
+        _count_tuned("ell_vs_seg", "hit")
+        use_ref = tuned
+    else:
+        _count_tuned("ell_vs_seg", "miss")
+        use_ref = ((n // shards) * rows < ELL_BATCH_MIN_ROWS
+                   or k > ELL_BATCH_MAX_WIDTH
+                   or num_edges / max(n * rows * k, 1) < ELL_BATCH_MIN_FILL)
     _count_dispatch("ell_vs_seg", "segment_sum" if use_ref else "ell")
     return use_ref
 
@@ -135,7 +199,13 @@ def weighted_bincount(ids: torch.Tensor, vals: torch.Tensor,
         return torch.zeros(nbins, dtype=torch.float32, device=ids.device)
     if not _common.on_cuda(ids):
         return ref.weighted_bincount_ref(ids, vals, nbins)
-    return weighted_bincount_cuda(*_histogram_inputs(ids, vals), nbins)
+    return weighted_bincount_cuda(*_histogram_inputs(ids, vals), nbins,
+                                  **_bincount_blocks(ids, nbins))
+
+
+def _bincount_blocks(ids: torch.Tensor, nbins: int) -> dict:
+    return _blocks("bincount", autotune.bincount_dims(ids, nbins),
+                   _BINCOUNT_DEFAULTS, ids.device)
 
 
 def weighted_bincount_batched(ids: torch.Tensor, vals: torch.Tensor,
@@ -164,11 +234,13 @@ def weighted_bincount_batched(ids: torch.Tensor, vals: torch.Tensor,
                           for s in range(0, n, rows)], dim=0)
     ids, vals = _histogram_inputs(ids, vals)
     if rows >= n:
-        return weighted_bincount_cuda(ids, vals, nbins)
+        return weighted_bincount_cuda(ids, vals, nbins,
+                                      **_bincount_blocks(ids, nbins))
     out = torch.empty((n, nbins), dtype=torch.float32, device=ids.device)
     for s in range(0, n, rows):
         weighted_bincount_cuda(ids[s: s + rows], vals[s: s + rows], nbins,
-                               out=out[s: s + rows])
+                               out=out[s: s + rows],
+                               **_bincount_blocks(ids[s: s + rows], nbins))
     return out
 
 
@@ -188,9 +260,10 @@ def ell_row_sums(weights: torch.Tensor, src: torch.Tensor,
     _count_dispatch("exec:ell_row_sums", _exec_path(src))
     if not _common.on_cuda(src):
         return ref.ell_row_sums_ref(weights, src, freq)
+    blocks = _blocks("row_sums", src.shape, _ROW_SUMS_DEFAULTS, src.device)
     return ell_row_sums_cuda(weights.to(torch.float32).contiguous(),
                              src.to(torch.int32).contiguous(),
-                             freq.to(torch.float32).contiguous())
+                             freq.to(torch.float32).contiguous(), **blocks)
 
 
 def _check_plan(src: torch.Tensor, freq: torch.Tensor) -> None:
@@ -211,7 +284,9 @@ def ell_propagate_batched(weights: torch.Tensor, active: torch.Tensor,
     _count_dispatch("exec:ell_batched", _exec_path(src))
     if not _common.on_cuda(src):
         return ref.ell_propagate_batched_ref(weights, active, src, freq)
-    return ell_propagate_batched_cuda(weights, active, src, freq)
+    blocks = _blocks("ell_batched", (n, rows, k), _BATCHED_DEFAULTS,
+                     src.device)
+    return ell_propagate_batched_cuda(weights, active, src, freq, **blocks)
 
 
 def ell_propagate_vector(W: torch.Tensor, active: torch.Tensor,
@@ -230,7 +305,9 @@ def ell_propagate_vector(W: torch.Tensor, active: torch.Tensor,
     _count_dispatch("exec:ell_vector", _exec_path(src))
     if not _common.on_cuda(src):
         return ref.ell_propagate_vector_ref(W, active, src, freq)
-    return ell_propagate_vector_cuda(W, active, src, freq)
+    blocks = _blocks("ell_vector", (n, rows, k, W.shape[-1]),
+                     _VECTOR_DEFAULTS, src.device)
+    return ell_propagate_vector_cuda(W, active, src, freq, **blocks)
 
 
 def ell_frontier_fused(weights0: torch.Tensor, in_deg: torch.Tensor,
@@ -254,8 +331,10 @@ def ell_frontier_fused(weights0: torch.Tensor, in_deg: torch.Tensor,
         w, rounds = ref.ell_frontier_fused_ref(weights0, in_deg, src, freq,
                                                max_rounds)
     else:
+        blocks = _blocks("ell_fused", (n, rows, k, max_rounds),
+                         _FUSED_DEFAULTS, src.device)
         w, rounds = ell_frontier_fused_cuda(weights0, in_deg, src, freq,
-                                            max_rounds)
+                                            max_rounds, **blocks)
     return (w, rounds) if with_rounds else w
 
 

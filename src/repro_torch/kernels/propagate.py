@@ -26,16 +26,23 @@ from . import _common
 
 launches = _common.launch_counter("ell_row_sums")
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+#: Threads a block: the shipped default and the shapes the autotuner sweeps.
+DEFAULT_THREADS = 256
+THREADS_CANDIDATES = (128, 256, 512, 1024)
 
 
 def ell_row_sums_cuda(weights: torch.Tensor, src: torch.Tensor,
-                      freq: torch.Tensor) -> torch.Tensor:
+                      freq: torch.Tensor,
+                      threads: int = DEFAULT_THREADS) -> torch.Tensor:
     """row_sums [rows] float32 on the card.
 
     weights: [R] float32; src: [rows, W] int32 with every entry in [0, R);
     freq: [rows, W] float32 — all contiguous, on one CUDA device.
+    ``threads``: threads a block, one of ``THREADS_CANDIDATES``.
     """
+    _common.check_launch_shape("threads", threads, THREADS_CANDIDATES)
     rows, k = src.shape
     dev = src.device
     _common.require_hopper(dev)
@@ -47,7 +54,8 @@ def ell_row_sums_cuda(weights: torch.Tensor, src: torch.Tensor,
     lanes = min(32, _common.floor_pow2(k))
     fn = _common.kernel_fn("repro_ell_row_sums", _ARGTYPES)
     err = fn(weights.data_ptr(), src.data_ptr(), freq.data_ptr(),
-             out.data_ptr(), rows, k, lanes, _common.stream_ptr(dev))
+             out.data_ptr(), rows, k, lanes, threads,
+             _common.stream_ptr(dev))
     _common.check_launch(err, "ell_row_sums")
     launches.inc()
     return out

@@ -26,17 +26,24 @@ from . import _common
 
 launches = _common.launch_counter("ell_propagate_batched")
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+#: Threads a block: the shipped default and the shapes the autotuner sweeps.
+DEFAULT_THREADS = 256
+THREADS_CANDIDATES = (128, 256, 512, 1024)
 
 
 def ell_propagate_batched_cuda(weights: torch.Tensor, active: torch.Tensor,
-                               src: torch.Tensor, freq: torch.Tensor):
+                               src: torch.Tensor, freq: torch.Tensor,
+                               threads: int = DEFAULT_THREADS):
     """(delta, seen), both [N, rows] float32, of one round on the card.
 
     weights/active: [N, R] float32; src: [N, rows, K] int32 with every
     entry in [0, R); freq: [N, rows, K] float32 — all contiguous, on one
-    CUDA device.
+    CUDA device.  ``threads``: threads a block, one of
+    ``THREADS_CANDIDATES``.
     """
+    _common.check_launch_shape("threads", threads, THREADS_CANDIDATES)
     n, rows, k = src.shape
     R = weights.shape[1]
     dev = src.device
@@ -51,7 +58,7 @@ def ell_propagate_batched_cuda(weights: torch.Tensor, active: torch.Tensor,
     fn = _common.kernel_fn("repro_ell_propagate_batched", _ARGTYPES)
     err = fn(weights.data_ptr(), active.data_ptr(), src.data_ptr(),
              freq.data_ptr(), delta.data_ptr(), seen.data_ptr(),
-             n, R, rows, k, lanes, _common.stream_ptr(dev))
+             n, R, rows, k, lanes, threads, _common.stream_ptr(dev))
     _common.check_launch(err, "ell_propagate_batched")
     launches.inc()
     return delta, seen

@@ -21,8 +21,14 @@ from . import _common
 
 launches = _common.launch_counter("ell_frontier_fused")
 
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
              + [ctypes.c_void_p] * 2)
+
+#: Threads a block (the kernel is instantiated for each; the cooperative
+#: grid is sized by the occupancy API per block size): the shipped default
+#: and the shapes the autotuner sweeps.
+DEFAULT_BLOCK = 512
+BLOCK_CANDIDATES = (128, 256, 512, 1024)
 
 #: [N, R] 4-byte scratch planes of the kernel: the stash of short rows
 #: (8 planes: 4 freq, 4 src), weight buffer 1, two frontier masks, cur,
@@ -35,7 +41,7 @@ last_grid = (0, 0, 0)
 
 def ell_frontier_fused_cuda(weights0: torch.Tensor, in_deg: torch.Tensor,
                             src: torch.Tensor, freq: torch.Tensor,
-                            max_rounds: int):
+                            max_rounds: int, block: int = DEFAULT_BLOCK):
     """``(weights [N, R] float32, rounds [N] int32)`` of the whole frontier
     loop on the card.
 
@@ -43,9 +49,10 @@ def ell_frontier_fused_cuda(weights0: torch.Tensor, in_deg: torch.Tensor,
     in [0, R); freq: [N, R, K] float32 — all contiguous, on one CUDA
     device, with N * R < 2^31.  Padding (``freq == 0``) may sit anywhere in
     a row.  ``rounds`` counts the rounds each corpus ran with a non-empty
-    frontier.
+    frontier.  ``block``: threads a block, one of ``BLOCK_CANDIDATES``.
     """
     global last_grid
+    _common.check_launch_shape("block", block, BLOCK_CANDIDATES)
     n, R, k = src.shape
     dev = src.device
     _common.require_hopper(dev)
@@ -73,7 +80,8 @@ def ell_frontier_fused_cuda(weights0: torch.Tensor, in_deg: torch.Tensor,
     err = fn(weights0.data_ptr(), in_deg.data_ptr(), src.data_ptr(),
              freq.data_ptr(), w.data_ptr(), scratch.data_ptr(),
              scratch.data_ptr() + 4 * planes, rounds.data_ptr(), n, R, k, lanes, vec,
-             max_rounds, ctypes.addressof(grid), _common.stream_ptr(dev))
+             max_rounds, block, ctypes.addressof(grid),
+             _common.stream_ptr(dev))
     _common.check_launch(err, "ell_frontier_fused")
     launches.inc()
     last_grid = tuple(grid)

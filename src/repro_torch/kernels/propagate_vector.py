@@ -26,17 +26,26 @@ from . import _common
 
 launches = _common.launch_counter("ell_propagate_vector")
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+             + [ctypes.c_void_p])
+
+#: Warps a block (the kernel is instantiated for each): the shipped default
+#: and the shapes the autotuner sweeps.
+DEFAULT_WARPS = 8
+WARPS_CANDIDATES = (2, 4, 8, 16)
 
 
 def ell_propagate_vector_cuda(W: torch.Tensor, active: torch.Tensor,
-                              src: torch.Tensor, freq: torch.Tensor):
+                              src: torch.Tensor, freq: torch.Tensor,
+                              warps: int = DEFAULT_WARPS):
     """(delta [N, rows, F], seen [N, rows]) float32 of one round on the card.
 
     W: [N, R, F] float32; active: [N, R] float32; src: [N, rows, K] int32
     with every entry in [0, R); freq: [N, rows, K] float32 — all
-    contiguous, on one CUDA device, with N * rows < 2^31.
+    contiguous, on one CUDA device, with N * rows < 2^31.  ``warps``: warps
+    a block, one of ``WARPS_CANDIDATES``.
     """
+    _common.check_launch_shape("warps", warps, WARPS_CANDIDATES)
     n, rows, k = src.shape
     R, F = W.shape[1], W.shape[2]
     dev = src.device
@@ -60,7 +69,7 @@ def ell_propagate_vector_cuda(W: torch.Tensor, active: torch.Tensor,
     fn = _common.kernel_fn("repro_ell_propagate_vector", _ARGTYPES)
     err = fn(w_ptr, active.data_ptr(), src.data_ptr(), q_ptr,
              delta.data_ptr(), seen.data_ptr(), n, R, rows, k, F, lanes_row,
-             lanes_entry, epl, vw, _common.stream_ptr(dev))
+             lanes_entry, epl, vw, warps, _common.stream_ptr(dev))
     _common.check_launch(err, "ell_propagate_vector")
     launches.inc()
     return delta, seen

@@ -23,7 +23,10 @@ operator for every corpus in a pack, entirely in the compressed domain:
 
 Everything is integer-valued float32 (< 2**24), so every reduce is exact
 in any order and each path is bit-equal to the decompress-then-scan numpy
-oracle and to the JAX package.  Sharded packs are not ported.
+oracle and to the JAX package.  Sharded packs (``gb.mesh``) evaluate each
+shard's rows on its own card (core/batch.py DESIGN note) and merge the
+per-corpus results in row order, padding rows dropped — bit-identical to
+the unsharded pack.
 """
 
 from __future__ import annotations
@@ -35,10 +38,12 @@ import torch
 
 from repro_torch.core import analytics as _analytics
 from repro_torch.core.batch import (GrammarBatch, _padded_sequence_plans,
-                                    _window_tokens, batched_top_down_weights)
+                                    _window_tokens, batched_top_down_weights,
+                                    resolve_batch_method)
 from repro_torch.core.grammar import pow2_bucket
 from repro_torch.kernels._common import resolve_device
-from repro_torch.search.engine import _gather_terms, batch_search_stats
+from repro_torch.search.engine import (_gather_terms, batch_search_stats,
+                                      shard_method)
 from repro_torch.search.index import base_method
 
 from .ops import (normalize_agg, normalize_phrase, normalize_predicate,
@@ -139,6 +144,9 @@ def batched_filter(gb: GrammarBatch, predicate,
                    method: str = "frontier") -> List[np.ndarray]:
     """Per real corpus: ascending int32 file ids satisfying the predicate."""
     pred = normalize_predicate(predicate)
+    if gb.mesh is not None:
+        m = shard_method(gb, method)
+        return gb.map_shards(lambda sub: batched_filter(sub, pred, m))
     st = batch_search_stats(gb, method)
     t_clip, ok, th = _leaf_arrays(predicate_leaves(pred), gb.V_pad)
     mask = _filter_impl(st.tv, st.fvalid, _tile(gb, t_clip), _tile(gb, ok),
@@ -163,6 +171,9 @@ def batched_agg(gb: GrammarBatch, terms: Sequence[int], op: str = "sum",
     """Per real corpus: (per_file [num_files] float32, total float32)."""
     op = normalize_agg(op)
     leaves = [(t, 0) for t in _agg_terms(terms)]
+    if gb.mesh is not None:
+        m = shard_method(gb, method)
+        return gb.map_shards(lambda sub: batched_agg(sub, terms, op, m))
     st = batch_search_stats(gb, method)
     t_clip, ok, _ = _leaf_arrays(leaves, gb.V_pad)
     pf, total = _agg_impl(st.tv, st.fvalid, _tile(gb, t_clip),
@@ -177,6 +188,9 @@ def batched_phrase(gb: GrammarBatch, phrase: Sequence[int],
                    method: str = "frontier") -> List[np.float32]:
     """Per real corpus: exact float32 occurrence count of the phrase."""
     phrase = normalize_phrase(phrase)
+    if gb.mesh is not None:
+        m = resolve_batch_method(gb, method)
+        return gb.map_shards(lambda sub: batched_phrase(sub, phrase, m))
     weights = batched_top_down_weights(gb, method=method)
     head, tail, stream = _padded_sequence_plans(gb, len(phrase))
     counts = _phrase_impl(head, tail, weights, stream,

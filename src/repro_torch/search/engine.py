@@ -33,8 +33,14 @@ value is exact).
 
 Padding is inert end to end: padded files are masked to ``-inf`` before
 top-k (and sliced off by ``min(k, num_files)``), padded/out-of-vocab term
-slots contribute exactly ``+0.0`` (zero idf or zero tf).  Sharded packs
-are not ported: one card runs the unsharded program.
+slots contribute exactly ``+0.0`` (zero idf or zero tf).
+
+Sharded packs (``gb.mesh``, core/batch.py DESIGN note) rank per shard:
+each shard's sub-pack keeps its own statistics and scores and ranks its
+own corpus rows on its card; the per-corpus results are merged on the host
+in row order.  Every row's statistics, idf table and top-k depend on that
+row alone, so the rankings (tie order included) are bit-identical to the
+unsharded pack's.
 """
 
 from __future__ import annotations
@@ -45,7 +51,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.batch import GrammarBatch, batched_term_vector
+from repro_torch.core.batch import (GrammarBatch, batched_term_vector,
+                                    resolve_batch_method)
 from repro_torch.core.grammar import pow2_bucket
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels._common import resolve_device
@@ -56,7 +63,7 @@ from .scoring import (DEFAULT_TOP_K, K1P1, SCHEMES, avg_doc_len, bm25_norm,
                       idf, normalize_terms)
 
 __all__ = ["batched_search", "search_corpus", "search_index_topk",
-           "batch_search_stats"]
+           "batch_search_stats", "search_sharded", "shard_method"]
 
 
 # ----------------------------------------------------------------------- #
@@ -110,7 +117,10 @@ def batch_search_stats(gb: GrammarBatch,
                        method: str = "frontier") -> _BatchSearchStats:
     """Doc lengths / document frequencies / tf lookups for a whole pack,
     derived from the batched per-file traversal and memoized on the pack
-    (key: traversal base)."""
+    (key: traversal base).  A sharded pack keeps them on its shards."""
+    if gb.mesh is not None:
+        raise ValueError("a sharded pack keeps its search statistics on its "
+                         "shards (see batched_search)")
     m = base_method(method)
     key = ("search", m)
     if key not in gb._plan_cache:
@@ -129,6 +139,12 @@ def batch_search_stats(gb: GrammarBatch,
                 tv=tv, norm=gb._place(norm), fvalid=gb._place(fvalid),
                 df=df, nf=nf)
     return gb._plan_cache[key]
+
+
+def shard_method(gb: GrammarBatch, method: str) -> str:
+    """The per-file traversal a sharded pack's shards run for ``method``:
+    its statistics base, resolved once against the whole pack."""
+    return resolve_batch_method(gb, base_method(method), per_file=True)
 
 
 def _query_arrays(df: np.ndarray, nf: np.ndarray, vocab: int,
@@ -170,10 +186,15 @@ def batched_search(gb: GrammarBatch, terms: Sequence[int],
 
     Returns per real corpus ``(doc_ids [k_i] int32, scores [k_i] float32)``
     with ``k_i = min(k, num_files)``, scores descending, ties broken
-    toward the lower file id.
+    toward the lower file id.  Sharded packs rank per shard and merge on
+    the host.
     """
     terms = normalize_terms(terms)
     k = _check_query(k, scheme)
+    if gb.mesh is not None:
+        m = shard_method(gb, method)
+        return gb.map_shards(lambda sub: batched_search(sub, terms, k,
+                                                        scheme, m))
     st = batch_search_stats(gb, method)
     t_clip, idf_q = _query_arrays(st.df, st.nf, gb.V_pad, terms, scheme)
     terms_dev = gb._place(np.tile(t_clip[None, :], (gb.n, 1)))
@@ -243,3 +264,17 @@ def search_corpus(source, terms: Sequence[int], k: int = DEFAULT_TOP_K,
           if hasattr(source, "search_index")
           else build_search_index(source, method=method, device=dev))
     return search_index_topk(si, terms, k=k, scheme=scheme, device=dev)
+
+
+def search_sharded(gas: Sequence, terms: Sequence[int],
+                   k: int = DEFAULT_TOP_K, scheme: str = "bm25", mesh=None,
+                   method: str = "frontier", bucket: bool = True,
+                   device=None) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """One-call sharded retrieval: pad + pack + shard + rank
+    (:func:`repro_torch.distributed.shard_batch.shard_batch`);
+    bit-identical to :func:`batched_search` on one pack.  Recurring
+    traffic should keep the pack (serving layer) instead of re-packing per
+    query."""
+    from repro_torch.distributed.shard_batch import shard_batch
+    gb = shard_batch(gas, mesh=mesh, bucket=bucket, device=device)
+    return batched_search(gb, terms, k=k, scheme=scheme, method=method)

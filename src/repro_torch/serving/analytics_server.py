@@ -42,11 +42,19 @@ code:
 Devices: every execution runs under ``torch.cuda.device(server.device)``,
 so a flush on the async queue's background thread (PyTorch's current
 device is per thread) launches on the pack's card and on that thread's
-current stream.  ``mesh="auto"`` resolves through
-:func:`repro_torch.distributed.shard_batch.corpus_mesh`: ``None`` on one
-card, so every chunk runs one single-card pack; two or more cards raise
-until sharding is ported (the JAX package's ``shard_min_corpora`` and
-``target_shards`` knobs, which split chunks across a mesh, come with it).
+current stream.
+
+Corpus-sharded execution: with more than one visible card the server holds
+a corpus mesh (``mesh="auto"`` ->
+:func:`repro_torch.distributed.shard_batch.corpus_mesh`, or a caller's
+:class:`~repro_torch.distributed.CorpusMesh`, whose devices may repeat) and
+:meth:`execute_chunk` selects a sharded pack by group size — chunks of at
+least ``shard_min_corpora`` corpora (default: the mesh size) split
+row-wise across the mesh, each shard on its own card and host thread
+(:meth:`GrammarBatch.shard`).  :meth:`chunk_capacity` allows up to
+``max_batch * shards`` corpora a sharded chunk, which the async queue uses
+through its ``target_shards`` knob.  On one card everything runs the
+single-card pack; results are bit-identical either way.
 The stage name ``compile`` (a (kind, signature)'s first execution, which
 the latency EWMA skips) is kept for the JAX package's dashboards: on the
 card that call pays plan builds, not a compile.
@@ -72,7 +80,8 @@ from repro_torch.core.batch import (ANALYTICS_KINDS, PER_FILE_KINDS,
                                     _round_up_pow2)
 from repro_torch.core.traversal import resolve_single_method
 from repro_torch.data.store import CompressedCorpus
-from repro_torch.distributed.shard_batch import corpus_mesh, mesh_size
+from repro_torch.distributed.shard_batch import (corpus_mesh, mesh_size,
+                                                 shard_batch)
 from repro_torch.kernels._common import resolve_device
 from repro_torch.query.engine import (QUERY_KINDS, query_corpus,
                                       run_batched_query)
@@ -246,8 +255,8 @@ class ServerStats:
 
     * ``queries`` / ``groups`` — requests accepted, (kind, params) groups;
     * ``batched_calls`` / ``sharded_calls`` / ``single_calls`` — batched
-      executions, of which sharded across cards (always 0: sharding is not
-      ported), and per-corpus ones;
+      executions, of which sharded across a corpus mesh, and per-corpus
+      ones;
     * ``batch_cache_hits`` — GrammarBatch packs reused;
     * ``epoch_invalidations`` — packs dropped / corpora re-snapshotted
       because a registered store's epoch moved (append_files): each count
@@ -426,6 +435,7 @@ class AnalyticsServer:
 
     def __init__(self, max_batch: int = 16, method: str = "frontier",
                  mesh: object = "auto",
+                 shard_min_corpora: Optional[int] = None,
                  clock: Callable[[], float] = time.monotonic,
                  registry: Optional[MetricsRegistry] = None, device=None):
         # every pack this server builds and every store it reads lives here
@@ -437,14 +447,22 @@ class AnalyticsServer:
             raise ValueError(f"method must be one of {self.METHODS}, "
                              f"got {method!r}")
         self.method = method
-        # "auto" -> the corpus mesh over the visible cards: None on one
-        # card (a CPU server never spans cards); two or more cards, or a
-        # caller mesh, raise until sharding is ported
-        if mesh == "auto":
+        # "auto" -> the corpus mesh over the visible cards (None on one
+        # card; a CPU server never spans cards); None -> never shard; or a
+        # caller's mesh
+        if isinstance(mesh, str):
+            if mesh != "auto":
+                raise ValueError(f"mesh must be 'auto', None or a corpus "
+                                 f"mesh, got {mesh!r}")
             mesh = corpus_mesh(None if self.device.type == "cuda"
                                else [self.device])
-        mesh_size(mesh)                 # raises for any mesh but None
         self.mesh = mesh
+        if shard_min_corpora is not None and shard_min_corpora < 1:
+            raise ValueError("shard_min_corpora must be >= 1")
+        # default: shard once a chunk has at least one corpus per device
+        self.shard_min_corpora = (mesh_size(self.mesh)
+                                  if shard_min_corpora is None
+                                  else shard_min_corpora)
         self._corpora: Dict[str, GrammarArrays] = {}
         self._stores: Dict[str, CompressedCorpus] = {}
         # epoch each corpus's arrays snapshot was taken at (0 for bare
@@ -484,9 +502,9 @@ class AnalyticsServer:
             self._corpora[name] = corpus
             self._epochs[name] = 0
         # packs that contained an older corpus under this name are stale
-        # (cache keys are names tuples)
+        # (cache keys are (names_tuple, shards))
         self._batches = {k: v for k, v in self._batches.items()
-                         if name not in k}
+                         if name not in k[0]}
 
     def corpora(self) -> Tuple[str, ...]:
         return tuple(self._corpora)
@@ -507,7 +525,7 @@ class AnalyticsServer:
         self._corpora[name] = store.ga
         self._epochs[name] = int(store.epoch)
         self._batches = {key: gb for key, gb in self._batches.items()
-                         if name not in key}
+                         if name not in key[0]}
         self.stats.epoch_invalidations += 1
         return True
 
@@ -611,21 +629,44 @@ class AnalyticsServer:
         return results
 
     # ------------------------------------------------------- engine core --
+    def shard_count(self, n_corpora: int) -> int:
+        """Devices a chunk of ``n_corpora`` would span: the mesh size once
+        the chunk reaches ``shard_min_corpora`` (or outgrows a single-card
+        pack), else 1."""
+        if self.mesh is None:
+            return 1
+        if n_corpora >= self.shard_min_corpora or n_corpora > self.max_batch:
+            return mesh_size(self.mesh)
+        return 1
+
+    def chunk_capacity(self, target_shards: int = 1) -> int:
+        """Corpora one :meth:`execute_chunk` call may carry:
+        ``max_batch`` per device, times ``min(target_shards, devices)`` —
+        the async queue's ``target_shards`` knob feeds this, so a large
+        flush splits across the mesh instead of running ``max_batch``-sized
+        chunks one after another."""
+        if target_shards < 1:
+            raise ValueError("target_shards must be >= 1")
+        return self.max_batch * min(target_shards, mesh_size(self.mesh))
+
     def run_group(self, kind: str, names: Sequence[str],
                   l: Optional[int] = None,
                   terms: Optional[Tuple[int, ...]] = None,
                   k: Optional[int] = None,
                   predicate: Optional[Tuple] = None,
-                  agg: Optional[str] = None) -> Dict:
+                  agg: Optional[str] = None,
+                  target_shards: int = 1) -> Dict:
         """Execute one normalized-parameter group over deduped ``names``.
 
         Chunks corpora of similar grammar size together: padding in each
         pack is bounded by the size spread within the chunk.  Name is the
         tie-break so the chunking (and thus the pack-cache key) is canonical
         for a given corpus set regardless of query order.  Both the sync
-        :meth:`run` and the async queue flush land here.
+        :meth:`run` and the async queue flush land here;
+        ``target_shards`` > 1 widens each chunk to span that many devices
+        (:meth:`chunk_capacity`).
         """
-        cap = self.max_batch
+        cap = self.chunk_capacity(target_shards)
         order = sorted(names, key=lambda n: (self._corpora[n].num_rules, n))
         out: Dict = {}
         for s in range(0, len(order), cap):
@@ -758,7 +799,10 @@ class AnalyticsServer:
         split or mis-share a group).
 
         The execution runs with the server's card current
-        (:meth:`_device_scope`), whichever thread calls.
+        (:meth:`_device_scope`), whichever thread calls.  Sharded mode
+        (:meth:`shard_count` > 1): the pack splits row-wise across the
+        corpus mesh, each shard on its own card and host thread — results
+        bit-identical to the single-card pack.
         """
         self._check_chunk_params(kind, l, terms, k, predicate=predicate,
                                  agg=agg)
@@ -766,19 +810,20 @@ class AnalyticsServer:
         # validated/grouped must still be served post-append data
         for name in chunk:
             self.refresh(name)
-        if len(chunk) > self.max_batch:
+        shards = self.shard_count(len(chunk))
+        if len(chunk) > self.max_batch * shards:
             raise ValueError(f"chunk of {len(chunk)} exceeds "
-                             f"max_batch={self.max_batch}")
+                             f"max_batch={self.max_batch} x {shards} shards")
         tracing = self.registry.enabled
         top_level = tracing and _trace.current() is None
         t0 = self.clock()
         hits0 = self.stats.batch_cache_hits
         cm = (_trace.span("chunk", clock=self.clock,
                           attrs={"kind": kind, "n_corpora": len(chunk),
-                                 "shards": 1})
+                                 "shards": shards})
               if tracing else nullcontext())
         with cm as chunk_span, self._device_scope():
-            if len(chunk) == 1:
+            if len(chunk) == 1 and shards == 1:
                 name = chunk[0]
                 if name in self._stores:
                     # CompressedCorpus: the per-corpus path reuses the
@@ -810,7 +855,7 @@ class AnalyticsServer:
                 self.stats.single_calls += 1
             else:
                 with self._obs_stage("pack_build", tracing):
-                    gb = self._get_batch(list(chunk))
+                    gb = self._get_batch(list(chunk), shards=shards)
                     self._count_fallback(kind, gb=gb)
                 sig = gb.signature
                 with self._obs_exec(kind, sig, tracing):
@@ -818,6 +863,8 @@ class AnalyticsServer:
                                                  predicate=predicate,
                                                  agg=agg)
                 self.stats.batched_calls += 1
+                if shards > 1:
+                    self.stats.sharded_calls += 1
                 self.stats.signatures[gb.signature] = \
                     self.stats.signatures.get(gb.signature, 0) + 1
                 out = dict(zip(chunk, vals))
@@ -856,8 +903,9 @@ class AnalyticsServer:
                                first_call=first)
 
     # ---------------------------------------------------------- internals --
-    def _get_batch(self, names: Sequence[str]) -> GrammarBatch:
-        key = tuple(names)
+    def _get_batch(self, names: Sequence[str],
+                   shards: int = 1) -> GrammarBatch:
+        key = (tuple(names), shards)
         epochs = tuple(self._epochs.get(n, 0) for n in names)
         gb = self._batches.get(key)
         if gb is not None:
@@ -865,14 +913,21 @@ class AnalyticsServer:
             # mutates, but an epoch-stamped hit is re-verified anyway so a
             # stale pack cannot serve even if a future code path forgets
             # the refresh (the raising guard is GrammarBatch.check_epochs;
-            # tests monkeypatch refresh away to prove this layer fires)
-            if gb.epochs == epochs:
+            # tests monkeypatch refresh away to prove this layer fires).
+            # A sharded pack's padding rows repeat real rows' epochs: the
+            # real prefix decides
+            if gb.epochs[: len(epochs)] == epochs:
                 self.stats.batch_cache_hits += 1
                 return gb
             del self._batches[key]
             self.stats.epoch_invalidations += 1
         gas = [self._corpora[n] for n in names]
-        gb = GrammarBatch.build(gas, device=self.device, epochs=epochs)
+        if shards > 1:
+            # shards > 1 implies shards == mesh_size(self.mesh): the pad +
+            # build + shard recipe is the library's, in one place
+            gb = shard_batch(gas, self.mesh, epochs=epochs)
+        else:
+            gb = GrammarBatch.build(gas, device=self.device, epochs=epochs)
         while len(self._batches) >= self.MAX_CACHED_BATCHES:
             self._batches.pop(next(iter(self._batches)))   # FIFO eviction
         self._batches[key] = gb

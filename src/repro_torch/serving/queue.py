@@ -18,8 +18,9 @@ one pack with little padding).  A group is flushed — one call into the
 shared engine core (:meth:`AnalyticsServer.run_group`) — when any of:
 
 ``max_batch``  the group reaches one flush's worth of distinct corpora —
-               ``max_batch`` on one card (a full pack, nothing to wait
-               for; checked on every submit);
+               ``max_batch`` on one device, ``max_batch * target_shards``
+               when a corpus mesh is available (a full pack, nothing to
+               wait for; checked on every submit);
 ``deadline``   the earliest deadline in the group is within one estimated
                batch latency (the per-signature EWMA tracked by
                ``ServerStats.observe_latency``) of *now* — waiting longer
@@ -68,6 +69,15 @@ because ``execute_chunk`` re-snapshots every mutated corpus at flush time
 (``AnalyticsServer.refresh``, the re-registration path) before packing —
 so a submit-append-drain sequence serves post-append data, never the
 grammar that was current at submit time.
+
+Sharded flushes: ``target_shards`` > 1 asks the engine to split large
+flushes row-wise across the corpus mesh instead of running
+``max_batch``-sized chunks one after another — one flush of up to
+``max_batch * target_shards`` corpora executes as one sharded pack over
+that many devices (``AnalyticsServer.chunk_capacity`` /
+``GrammarBatch.shard``).  The knob is a target: with fewer devices (or
+one), capacity degrades to the plain per-device flush, and results stay
+bit-identical throughout.
 
 Time is injectable (``clock=``): the flush-policy tests drive a simulated
 clock through :meth:`poll`, deterministically.  For real deployments,
@@ -199,6 +209,13 @@ class AsyncAnalyticsServer:
                    to free space.  ``ServerStats.max_queue_depth`` records
                    the observed high-water mark, ``stats.rejected`` the
                    refused submissions.
+    target_shards: how many devices one flush should aim to span.  Raises
+                   the ``max_batch`` fill condition to the engine's
+                   ``chunk_capacity(target_shards)`` and forwards the
+                   target to ``run_group``, so a large flush executes as
+                   one sharded pack instead of sequential ``max_batch``
+                   chunks.  Clamped by the devices in the engine's mesh; 1
+                   (default) keeps the single-device flush policy exactly.
     """
 
     def __init__(self, server: AnalyticsServer, *,
@@ -207,14 +224,18 @@ class AsyncAnalyticsServer:
                  default_latency: float = DEFAULT_LATENCY_ESTIMATE,
                  clock: Optional[Callable[[], float]] = None,
                  poll_interval: float = 0.001,
-                 max_pending: Optional[int] = None):
+                 max_pending: Optional[int] = None,
+                 target_shards: int = 1):
         if idle_timeout < 0:
             raise ValueError("idle_timeout must be >= 0")
         if poll_interval <= 0:
             raise ValueError("poll_interval must be > 0")
         if max_pending is not None and max_pending < 1:
             raise ValueError("max_pending must be >= 1 (or None)")
+        if target_shards < 1:
+            raise ValueError("target_shards must be >= 1")
         self._engine = server
+        self.target_shards = target_shards
         self.max_pending = max_pending
         self.idle_timeout = float(idle_timeout)
         self.max_wait = (10.0 * self.idle_timeout if max_wait is None
@@ -310,7 +331,8 @@ class AsyncAnalyticsServer:
             self._depth_gauge.set(float(self._depth))
             self.stats.max_queue_depth = max(self.stats.max_queue_depth,
                                              self._depth)
-            if len(g.corpora_seen) >= self._engine.max_batch:
+            if len(g.corpora_seen) >= self._engine.chunk_capacity(
+                    self.target_shards):
                 to_flush = self._pop(key)
         if to_flush is not None:
             self._flush_group(to_flush, "max_batch", self._now())
@@ -434,11 +456,13 @@ class AsyncAnalyticsServer:
                         with _trace.activate(fspan, self._now):
                             by_corpus = self._engine.run_group(
                                 g.kind, names, l=g.l, terms=g.terms,
-                                k=g.k, predicate=g.predicate, agg=g.agg)
+                                k=g.k, predicate=g.predicate, agg=g.agg,
+                                target_shards=self.target_shards)
                     else:
                         by_corpus = self._engine.run_group(
                             g.kind, names, l=g.l, terms=g.terms, k=g.k,
-                            predicate=g.predicate, agg=g.agg)
+                            predicate=g.predicate, agg=g.agg,
+                            target_shards=self.target_shards)
             except Exception as e:              # noqa: BLE001 — fanned out
                 err = e
                 for p in live:

@@ -720,3 +720,170 @@ def test_servers_on_card(cuda):
         for q, f, g in zip(qs, futs, got):
             _equal(f.result(timeout=60), g, f"async {method} {q.kind}")
         assert srv[None].stats.shed == 0
+
+
+# ------------------------------------------- launch shapes (autotuner) --
+from repro_torch.kernels import autotune  # noqa: E402
+from repro_torch.kernels import bincount as _bincount  # noqa: E402
+from repro_torch.kernels import propagate as _propagate  # noqa: E402
+from repro_torch.kernels import propagate_batched as _batched  # noqa: E402
+from repro_torch.kernels import propagate_vector as _vector  # noqa: E402
+
+
+@pytest.mark.parametrize("threads", _batched.THREADS_CANDIDATES)
+def test_propagate_batched_every_launch_shape_on_card(cuda, threads,
+                                                      seeded_rng):
+    for n, rows, k, R in ((3, 300, 8, 500), (2, 70, 512, 90)):
+        args = _on(cuda, *plan_inputs(seeded_rng, n, rows, k, R))
+        _same(ell_propagate_batched_cuda(*args, threads=threads),
+              ref.ell_propagate_batched_ref(*args))
+
+
+@pytest.mark.parametrize("block", propagate_fused.BLOCK_CANDIDATES)
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_frontier_fused_every_launch_shape_on_card(cuda, block, case,
+                                                   seeded_rng):
+    """Each block size's cooperative grid (sized by the occupancy API for
+    that block size) on the skewed and padded cases."""
+    w0, ind, src, freq, max_rounds = fused_case(seeded_rng, case, 4, 1500,
+                                                1024)
+    args = _on(cuda, w0, ind, src, freq)
+    got = propagate_fused.ell_frontier_fused_cuda(*args, max_rounds,
+                                                  block=block)
+    torch.cuda.synchronize()
+    _same(got, ref.ell_frontier_fused_ref(*args, max_rounds))
+    blocks, per_sm, sms = propagate_fused.last_grid
+    assert per_sm >= 1 and 1 <= blocks <= per_sm * sms
+
+
+@pytest.mark.parametrize("warps", _vector.WARPS_CANDIDATES)
+@pytest.mark.parametrize("R,k,F,n", [(130, 5, 17, 2), (300, 128, 16, 2),
+                                     (300, 8, 300, 1)])
+def test_propagate_vector_every_launch_shape_on_card(cuda, warps, R, k, F,
+                                                     n, seeded_rng):
+    args = _on(cuda, *vector_inputs(seeded_rng, n, R, k, F))
+    _same(_vector.ell_propagate_vector_cuda(*args, warps=warps),
+          ref.ell_propagate_vector_ref(*args))
+
+
+@pytest.mark.parametrize("threads", _bincount.THREADS_CANDIDATES)
+def test_bincount_every_launch_shape_on_card(cuda, threads, seeded_rng):
+    ids, vals = _on(cuda, *bincount_inputs(seeded_rng, 100001, 1030,
+                                           case="zipf"))
+    _same([weighted_bincount_cuda(ids, vals, 1030, threads=threads)],
+          [ref.weighted_bincount_ref(ids, vals, 1030)])
+    bids, bvals = _on(cuda, *bincount_inputs(seeded_rng, 5000, 300,
+                                             case="padding_rows", rows=6))
+    _same([weighted_bincount_cuda(bids.long(), bvals, 300, threads=threads)],
+          [ref.weighted_bincount_ref(bids, bvals, 300)])
+
+
+@pytest.mark.parametrize("threads", _propagate.THREADS_CANDIDATES)
+def test_row_sums_every_launch_shape_on_card(cuda, threads, seeded_rng):
+    for rows, k, R in ((1001, 5, 77), (9, 1024, 5000)):
+        args = _on(cuda, *_row_sums_inputs(seeded_rng, rows, k, R, True))
+        _same([ell_row_sums_cuda(*args, threads=threads)],
+              [ref.ell_row_sums_ref(*args)])
+
+
+@pytest.fixture
+def tuned_table(tmp_path, monkeypatch):
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "tuned.json"))
+    autotune.reset_table()
+    yield tmp_path / "tuned.json"
+    autotune.reset_table()
+
+
+def test_sweeps_on_card_persist_and_feed_ops(cuda, tuned_table, seeded_rng):
+    """The five sweeps and the route sweep run on the card, every
+    candidate exact; the reloaded table gives ops a hit and the plain
+    version's answers."""
+    w, a, src, freq = pargs = _on(cuda, *plan_inputs(seeded_rng, 2, 300, 8,
+                                                     500))
+    fargs = _on(cuda, *batch_dags(seeded_rng, 400, 6, 2)[:4])
+    vargs = _on(cuda, *vector_inputs(seeded_rng, 2, 300, 8, 16))
+    hargs = _on(cuda, *bincount_inputs(seeded_rng, 20000, 700, case="zipf"))
+    rargs = _on(cuda, *_row_sums_inputs(seeded_rng, 1001, 5, 77, True))
+    entries = [autotune.tune_ell_batched(*pargs, repeat=2, reps=5),
+               autotune.tune_ell_fused(*fargs, 12, repeat=2, reps=5),
+               autotune.tune_ell_vector(*vargs, repeat=2, reps=5),
+               autotune.tune_bincount(*hargs, 700, repeat=2, reps=5),
+               autotune.tune_row_sums(*rargs, repeat=2, reps=5, save=True)]
+    for e in entries:
+        assert e["us"] == min(e["table_us"].values()) and e["us"] > 0
+    autotune.reset_table()
+    assert len(autotune.load_table()) == 5
+    assert all(k.startswith(torch.cuda.get_device_name(cuda) + "|")
+               for k in autotune.load_table())
+    from repro_torch.obs import global_registry
+    fam = global_registry().counter("repro_kernel_tuned_table_total", "",
+                                    ("kind", "result"))
+    before = fam.labels("ell_batched", "hit").value
+    _same(ops.ell_propagate_batched(*pargs),
+          ref.ell_propagate_batched_ref(*pargs))
+    assert fam.labels("ell_batched", "hit").value == before + 1
+    _same(ops.ell_frontier_fused(*fargs, 12, with_rounds=True),
+          ref.ell_frontier_fused_ref(*fargs, 12))
+    _same(ops.ell_propagate_vector(*vargs),
+          ref.ell_propagate_vector_ref(*vargs))
+    _same([ops.weighted_bincount(*hargs, 700)],
+          [ref.weighted_bincount_ref(*hargs, 700)])
+    _same([ops.ell_row_sums(*rargs)], [ref.ell_row_sums_ref(*rargs)])
+    gas = []
+    for files, vocab in ragged_corpora():
+        g, nf = compress_files(files, vocab)
+        gas.append(flatten(g, vocab, nf))
+    e = autotune.tune_ell_vs_seg(GrammarBatch.build(gas[:4]), repeat=2)
+    assert e["winner"] in ("segment_sum", "ell")
+
+
+# ------------------------------------------------------------- sharding --
+from repro_torch.distributed import corpus_mesh, shard_batch  # noqa: E402
+
+
+def _ragged_gas():
+    gas = []
+    for files, vocab in ragged_corpora():
+        g, nf = compress_files(files, vocab)
+        gas.append(flatten(g, vocab, nf))
+    return gas
+
+
+def _sharded_equals_unsharded(mesh):
+    from repro_torch.search.engine import batched_search
+    gas = _ragged_gas()
+    one = GrammarBatch.build(gas)
+    sharded = shard_batch(gas, mesh)
+    assert sharded.shards == mesh.size and sharded.real == len(gas)
+    for sub, dev in zip(sharded.shard_packs, mesh.devices):
+        assert sub.device == dev and sub.in_deg.device == dev
+    for kind in ANALYTICS_KINDS:
+        for method in ("frontier", "frontier_ell", "frontier_fused"):
+            got = run_batched(sharded, kind, method)
+            want = run_batched(one, kind, method)
+            for g, w in zip(got, want):
+                for x, y in zip(g if isinstance(g, tuple) else (g,),
+                                w if isinstance(w, tuple) else (w,)):
+                    np.testing.assert_array_equal(x, y, err_msg=f"{kind} "
+                                                  f"{method}")
+    got = batched_search(sharded, (1, 2, 3), k=3)
+    want = batched_search(one, (1, 2, 3), k=3)
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            np.testing.assert_array_equal(x, y)
+    mesh.close()
+
+
+def test_sharded_pack_on_one_card_equals_unsharded(cuda):
+    """Two and three shards on the one card (a device repeated in the
+    mesh), each driven by its own host thread."""
+    for k in (2, 3):
+        _sharded_equals_unsharded(corpus_mesh((cuda,) * k))
+
+
+def test_sharded_pack_over_every_card_equals_unsharded(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    mesh = corpus_mesh()
+    assert mesh.size == torch.cuda.device_count()
+    _sharded_equals_unsharded(mesh)

@@ -15,8 +15,9 @@
   both packages; the flush fuzz of the JAX package's queue tests holds;
   submits from several threads against the background serve loop equal
   the sync answers.
-* Devices: ``AnalyticsServer()`` without a device raises with no card, and
-  a second card raises until sharding is ported.
+* Devices: ``AnalyticsServer()`` without a device raises with no card;
+  two visible cards give a two-shard corpus mesh (sharded serving is
+  tested in test_torch_shard.py).
 
 The JAX server is built with ``mesh=None`` throughout (its sharded path
 is a known fault of the reference on this JAX).  Everything runs on the
@@ -292,7 +293,7 @@ def test_stale_pack_planted_in_the_cache_is_refused(corpora):
     assert stale.epochs == (0, 0)
     store.append_files([fa[0]])
     srv.run(qs)                          # refresh purges and rebuilds
-    key = next(k for k in srv._batches if "a" in k)
+    key = next(k for k in srv._batches if "a" in k[0])   # (names, shards)
     srv._batches[key] = stale            # a lost purge
     before = srv.stats.epoch_invalidations
     got = srv.run(qs)
@@ -485,13 +486,17 @@ def test_server_without_device_raises_with_no_cuda(monkeypatch):
 
 
 def test_more_than_one_card_raises_until_sharding_is_ported(monkeypatch):
+    """Sharding is ported: two visible cards give a two-shard corpus mesh
+    (nothing raises any more), and a server takes a caller's mesh."""
     assert corpus_mesh(devices=[torch.device("cpu")]) is None
     assert mesh_size(None) == 1
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        corpus_mesh()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ts.AnalyticsServer(device="cpu", mesh=object())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert mesh_size(corpus_mesh()) == 2
+    mesh = corpus_mesh(("cpu",) * 2)
+    assert ts.AnalyticsServer(device="cpu", mesh=mesh).mesh is mesh
+    with pytest.raises(ValueError, match="mesh must be"):
+        ts.AnalyticsServer(device="cpu", mesh="everywhere")
     # a CPU server never spans cards, whatever the machine holds
     assert ts.AnalyticsServer(device="cpu").mesh is None
 

@@ -259,7 +259,8 @@ cudaError_t launch(const void* W, const void* active, const void* src,
 extern "C" int repro_ell_propagate_vector(
     const void* W, const void* active, const void* src, const void* freq,
     void* delta, void* seen, int n, int R, int rows, int k, int F, int G,
-    int L, int epl, int vw, void* stream) {
+    int L, int epl, int vw, int /*warps: this trial's shape is fixed*/,
+    void* stream) {
   if (n == 0 || rows == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
