@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's analytics engines and its analytics server once
-on one NVIDIA H100.
+"""Drive the PyTorch port's analytics engines, its analytics server and
+its LM serving path once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -101,6 +101,28 @@ CUDA toolkit.  Phases:
    gains ``tuned_shape`` / ``tuned_device_ms`` at its main-path shape
    beside ``default_sweep_device_ms``.
 
+9. LM serving (``[lm]``), counts zeroed just before and read just after
+   (the LM path has no kernel of its own: attention, the MoE dispatch and
+   the SSD scan are plain PyTorch, as they are plain ``jnp`` in the JAX
+   package).  ``qwen2-0.5b`` at its published widths and all 24 layers in
+   float32 (matmuls without TF32), random weights from a fixed seed drawn
+   on the host: ``apply_lm`` logits of a B=2, S=8 prompt on the card
+   within 1e-4 * max(1, max|cpu|) of the same weights' on the CPU, and on
+   the card ``decode_step`` fed the prompt token by token within 3e-3 *
+   max(1, max|full|) of ``apply_lm`` (the JAX package's bound), with the
+   greedy tokens equal wherever the two paths' top-2 margin exceeds it.
+   The ten archs at their reduced float32 widths pass the same two checks.
+   Then ``qwen2-0.5b`` in bf16 at full width serves B=8: prefill ms of 8
+   x 16 tokens (``make_prefill_step``, CUDA events), decode ms a step
+   (median of 32 on the host clock) and tokens/s, peak memory, parameter
+   bytes and one decode step's device time (``torch.profiler``) beside
+   its host time; logits finite, tokens valid ids; then the launcher
+   ``repro_torch.launch.serve --no-reduced`` the same way a user calls it.
+   Last, ``masked_top_k`` (search's ranking and the MoE router's top-k)
+   at the search shape and the full-width router shape against
+   ``torch.topk``.  Every number is printed beside the card's name and
+   power limit.
+
 Phases 1-7 run with no tuned table (``REPRO_AUTOTUNE_CACHE`` points at a
 file that does not exist), so they launch the shipped shapes.
 It prints one ``{"kernels": [...]}`` line and, last, the device line, and
@@ -156,6 +178,19 @@ SERVE_KERNELS = ("ell_propagate_batched", "ell_frontier_fused",
 
 # the checkpoint phase (phase 5): the kernels its analytics must launch
 CKPT_KERNELS = ("ell_frontier_fused", "weighted_bincount")
+# the LM serving phase (phase 9): qwen2-0.5b at its published widths
+LM_ARCH = "qwen2-0.5b"
+LM_SEED = 0
+LM_CHECK_B, LM_CHECK_S = 2, 8       # the float32 checks' prompt
+LM_REDUCED_S = 10                   # the ten reduced archs' prompt
+LM_CARD_TOL = 1e-4                  # card vs CPU: * max(1, max|cpu|)
+LM_PARALLEL_TOL = 3e-3              # decode vs parallel: * max(1, max|full|)
+LM_SERVE_B, LM_PROMPT, LM_STEPS = 8, 16, 32
+LM_PROFILE_STEPS = 5
+# masked_top_k: search's [corpora, files] scores, top 10; the full-width
+# qwen2-moe-a2.7b router at the served batch, [8, 16, 60 experts], top 4
+TOPK_SEARCH_SHAPE, TOPK_SEARCH_K = (16, 64), 10
+TOPK_ROUTER_SHAPE, TOPK_ROUTER_K = (8, 16, 60), 4
 # the sharding phase (phase 6): shard counts on the one card, methods, and
 # the kernels it must launch
 SHARD_COUNTS = (2, 3)
@@ -1495,6 +1530,249 @@ def autotune_phase(gb, sub, single, records, dev) -> None:
             at.reset_table()
 
 
+# ----------------------------------------------------------------------- #
+# LM serving (phase 9): the model zoo, KV-cache decode, the serve launcher #
+# ----------------------------------------------------------------------- #
+def lm_scaled_err(got, want) -> float:
+    """max |got - want| / max(1, max |want|)."""
+    return max_abs_err(got, want) / max(1.0, float(want.abs().max()))
+
+
+def lm_check(cfg, dev, label: str, B: int, S: int) -> None:
+    """Card logits against the CPU's (same weights) within
+    LM_CARD_TOL * max(1, max|cpu|); on the card, ``decode_step`` fed the
+    prompt token by token against ``apply_lm`` within
+    LM_PARALLEL_TOL * max(1, max|full|), and the greedy tokens equal
+    wherever the two paths' top-2 margin exceeds that bound."""
+    import torch
+    from repro_torch import models as tm
+    from repro_torch.serving import make_prefill_step
+    t0 = time.perf_counter()
+    # the same random weights, drawn on the host, on the CPU and the card
+    cpu = tm.init_lm(cfg, torch.Generator().manual_seed(LM_SEED),
+                     device="cpu")
+    card = tm.lm_from_params(cfg, tm.lm_to_params(cpu), device=dev)
+    rng = np.random.default_rng(LM_SEED)
+    toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    extra = None
+    if cfg.family == "encdec":
+        extra = rng.normal(size=(B, cfg.encoder_seq, cfg.d_model))
+    elif cfg.family == "vlm":
+        extra = rng.normal(size=(B, cfg.num_patches, cfg.d_model))
+    extra = None if extra is None else extra.astype(np.float32)
+    prefill = make_prefill_step(cfg)
+    want = prefill(cpu, toks, extra_embeds=extra)
+    full = prefill(card, toks, extra_embeds=extra)
+    del cpu
+    check(bool(torch.isfinite(full).all()), f"[lm] {label}: logits not "
+          f"finite")
+    card_err = lm_scaled_err(full.cpu(), want)
+    check(card_err <= LM_CARD_TOL, f"[lm] {label}: card logits differ from "
+          f"the CPU's by {card_err:.3g} of scale (bound {LM_CARD_TOL})")
+    cache = tm.init_cache(cfg, B, S, device=dev)
+    outs = []
+    with torch.no_grad():
+        if cfg.family == "encdec":
+            cache = tm.prefill_cross(cfg, card, cache, extra)
+        for t in range(S):
+            lg, cache = tm.decode_step(cfg, card, cache, toks[:, t:t + 1])
+            outs.append(lg)
+    dec = torch.cat(outs, dim=1)
+    # pixtral's parallel path puts its patches in front; decode has none
+    full_text = prefill(card, toks) if cfg.family == "vlm" else full
+    dec_err = lm_scaled_err(dec, full_text)
+    check(dec_err <= LM_PARALLEL_TOL, f"[lm] {label}: decode differs from "
+          f"parallel by {dec_err:.3g} of scale (bound {LM_PARALLEL_TOL})")
+    bound_abs = LM_PARALLEL_TOL * max(1.0, float(full_text.abs().max()))
+    flips = []
+    for logits in (full_text, dec):
+        top2 = torch.topk(logits, 2, dim=-1).values
+        flips.append(top2[..., 0] - top2[..., 1])
+    margin = torch.minimum(*flips)
+    differ = full_text.argmax(-1) != dec.argmax(-1)
+    for b, s in differ.nonzero().tolist():
+        m = float(margin[b, s])
+        log(f"[lm] {label}: greedy token differs at (batch {b}, position "
+            f"{s}), top-2 margin {m:.4g} (bound {bound_abs:.4g})")
+        check(m < bound_abs, f"[lm] {label}: greedy token flips at ({b}, "
+              f"{s}) with a top-2 margin {m:.4g} above the bound")
+    log(f"[lm] {label}: card vs CPU {card_err:.3g} of scale (bound "
+        f"{LM_CARD_TOL}), decode vs parallel {dec_err:.3g} (bound "
+        f"{LM_PARALLEL_TOL}), {int(differ.sum())} greedy flips below the "
+        f"margin, B={B} S={S}, {time.perf_counter() - t0:.1f} s")
+
+
+def device_mean(fn, dev, calls: int):
+    """``(device ms, device ops)`` a call of ``fn``: the summed durations
+    of every activity ``calls`` calls put on the card
+    (``torch.profiler``), divided by ``calls``.  Unlike
+    :func:`device_split` it needs no fixed activity count a call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize(dev)
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    check(bool(evs), "the profiler traced no device activity")
+    total_us = sum(e.time_range.elapsed_us() for e in evs)
+    return total_us / calls / 1e3, len(evs) / calls
+
+
+def topk_records(dev, smi: str):
+    """``masked_top_k`` (plain torch, a stable sort) at the search shape
+    and the full-width MoE router shape, against ``torch.topk``."""
+    import torch
+    from repro_torch.kernels import ops
+    out = []
+    for label, shape, k in (("search", TOPK_SEARCH_SHAPE, TOPK_SEARCH_K),
+                            ("router", TOPK_ROUTER_SHAPE, TOPK_ROUTER_K)):
+        g = torch.Generator(device=dev).manual_seed(LM_SEED)
+        scores = torch.rand(shape, generator=g, device=dev)
+        valid = torch.rand(shape, generator=g, device=dev) < 0.9
+        vals, idx = ops.masked_top_k(scores, valid, k)
+        ref = torch.topk(torch.where(valid, scores, float("-inf")), k,
+                         dim=-1)
+        check(torch.equal(vals, ref.values), f"[lm] masked_top_k {label}: "
+              f"values differ from torch.topk")
+        ms = time_ms(lambda: ops.masked_top_k(scores, valid, k), dev)
+        def library():
+            return torch.topk(torch.where(valid, scores, float("-inf")), k,
+                              dim=-1)
+        lib_ms = time_ms(library, dev)
+        lib_device_ms, _ = device_mean(library, dev, TIMING_REPS)
+        device_ms, dev_ops = device_mean(
+            lambda: ops.masked_top_k(scores, valid, k), dev, TIMING_REPS)
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            ops.masked_top_k(scores, valid, k)
+        host_us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+        torch.cuda.synchronize(dev)
+        rows = scores.numel() // shape[-1]
+        b = bound(nbytes(scores, valid) + rows * k * 8, 0)
+        rec = {"name": f"masked_top_k ({label})", "shape": list(shape),
+               "k": k, "ms": ms, "device_ms": device_ms, "host_us": host_us,
+               "device_ops_a_call": dev_ops, "bound_ms": b[0],
+               "bound_by": b[1], "library_ms": lib_ms,
+               "library_device_ms": lib_device_ms}
+        log(f"[lm] masked_top_k {label} {list(shape)} k={k}: {ms:.5g} ms, "
+            f"device {device_ms:.5g} ms ({dev_ops:g} device ops a call), "
+            f"host {host_us:.4g} us, bound {b[0]:.5g} ms ({b[1]}); "
+            f"torch.topk {lib_ms:.5g} ms, device {lib_device_ms:.5g} ms "
+            f"({smi})")
+        out.append(rec)
+    return out
+
+
+def lm_phase(dev, smi: str, cut=None):
+    """Phase 9; returns ``masked_top_k``'s records.  ``cut``: config
+    overrides for a CPU rehearsal (depth and vocabulary), which skips the
+    launcher and the timings of ``masked_top_k``; the card runs the
+    published widths and depth."""
+    import dataclasses
+    import torch
+    from repro_torch import models as tm
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch import serve
+    from repro_torch.serving import make_prefill_step, make_serve_step
+    t_phase = time.perf_counter()
+    # float32 checks need full-precision matmuls (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cut = cut or {}
+
+    # full-width qwen2-0.5b in float32: card == CPU, decode == parallel
+    cfg32 = dataclasses.replace(get_config(LM_ARCH), dtype="float32", **cut)
+    lm_check(cfg32, dev, f"{LM_ARCH} float32 ({cfg32.num_layers} layers, "
+             f"vocab {cfg32.vocab_size})", LM_CHECK_B, LM_CHECK_S)
+    # every family at its reduced widths
+    for arch in ARCH_IDS:
+        over = {}
+        if get_config(arch).moe_num_experts:
+            over["moe_capacity_factor"] = 4.0     # no drops: decode == par.
+        lm_check(tm.reduced(get_config(arch), dtype="float32", **over), dev,
+                 f"{arch} reduced", LM_CHECK_B, LM_REDUCED_S)
+
+    # served numbers: bf16 at the published widths
+    cfg = dataclasses.replace(get_config(LM_ARCH), **cut)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)    # by the earlier phases
+    model = tm.init_lm(cfg, torch.Generator().manual_seed(LM_SEED),
+                       device=dev)
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    rng = np.random.default_rng(LM_SEED)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_SERVE_B, LM_PROMPT)).astype(np.int32)).to(dev)
+    prefill = make_prefill_step(cfg)
+    logits = prefill(model, prompts)
+    check(bool(torch.isfinite(logits).all()), "[lm] bf16 prefill logits "
+          "not finite")
+    prefill_ms = time_ms(lambda: prefill(model, prompts), dev)
+    cache = tm.init_cache(cfg, LM_SERVE_B, LM_PROMPT + LM_STEPS +
+                          LM_PROFILE_STEPS, device=dev)
+    step = make_serve_step(cfg)
+    for t in range(LM_PROMPT):
+        tok, cache, logits = step(model, cache, prompts[:, t:t + 1])
+    step_ms, gen = [], []
+    for _ in range(LM_STEPS):
+        if cuda:
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        tok, cache, logits = step(model, cache, tok)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(logits).all()), "[lm] bf16 decode logits "
+              "not finite")
+        gen.append(tok)
+    gen = torch.cat(gen, dim=1)
+    check(bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
+          "[lm] bf16 greedy tokens are not valid ids")
+    decode_ms = statistics.median(step_ms)
+    log(f"[lm] {LM_ARCH} bf16 served, B={LM_SERVE_B}, prompt {LM_PROMPT}, "
+        f"{LM_STEPS} steps, {cfg.num_layers} layers, vocab "
+        f"{cfg.vocab_size} ({smi}):")
+    log(f"[lm]   prefill {prefill_ms:.5g} ms (B={LM_SERVE_B} x {LM_PROMPT}, "
+        f"median of {TIMING_REPS}) ({smi})")
+    log(f"[lm]   decode {decode_ms:.5g} ms a step (median of {LM_STEPS}, "
+        f"host clock), {LM_SERVE_B / decode_ms * 1e3:.6g} tokens/s ({smi})")
+    log(f"[lm]   parameters {param_bytes} B ({smi})")
+    if cuda:
+        state = [tok, cache]
+
+        def one_step():
+            state[0], state[1], _ = step(model, state[1], state[0])
+        dev_ms, ops_a_step = device_mean(one_step, dev, LM_PROFILE_STEPS)
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"[lm]   peak memory {peak - held} B above the {held} B the "
+            f"earlier phases hold (torch.cuda.max_memory_allocated) ({smi})")
+        log(f"[lm]   decode step device_ms {dev_ms:.5g} (torch.profiler, "
+            f"mean of {LM_PROFILE_STEPS}, {ops_a_step:g} device ops a step) "
+            f"against {decode_ms:.5g} ms on the host clock: the card is "
+            f"busy {dev_ms / decode_ms:.1%} of the step ({smi})")
+    del model, cache
+
+    records = []
+    if cuda:
+        # the launcher a user calls, at the same widths
+        served = serve.main(["--arch", LM_ARCH, "--no-reduced", "--batch",
+                             str(LM_SERVE_B), "--prompt-len", str(LM_PROMPT),
+                             "--steps", str(LM_STEPS), "--device", str(dev)])
+        check(all(0 <= i < cfg.vocab_size for i in served["ids"]),
+              "[lm] the launcher served invalid ids")
+        log(f"[lm]   launcher: {served['tok_s']:.6g} tok/s ({smi})")
+        records = topk_records(dev, smi)
+    log(f"[lm] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
 def run(dev, n_corpora=N_CORPORA, n_files=N_FILES,
         tokens_per_file=TOKENS_PER_FILE, vocab=VOCAB,
         single_files=SINGLE_FILES):
@@ -1620,6 +1898,12 @@ def main() -> int:
             print(f"chip_smoke: FAILED: {path} never launched {missing}",
                   file=sys.stderr)
             return 1
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    topk = lm_phase(dev, smi)
+    log(f"[lm] launches {launch_counts()} (the LM path has no kernel of "
+        f"its own)")
+    log("[lm] masked_top_k " + json.dumps(topk))
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

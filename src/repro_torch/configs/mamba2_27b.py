@@ -1,0 +1,12 @@
+"""mamba2-2.7b [ssm] — 64L d_model=2560 attention-free, ssm_state=128,
+vocab=50280, SSD (state-space duality) mixers, no FFN blocks
+[arXiv:2405.21060; unverified]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mamba2-2.7b", family="ssm",
+    num_layers=64, d_model=2560, num_heads=0, num_kv_heads=0,
+    d_ff=0, vocab_size=50280,
+    ssm_state=128, ssm_head_dim=64, ssm_expand=2, ssm_conv=4,
+    tie_embeddings=True,
+)

@@ -1,0 +1,14 @@
+"""Model zoo: the 10 assigned architectures on one unified LM skeleton
+(the port of the JAX package's ``models``), plus the weight carry-over
+from the JAX package's parameter tree (``convert``)."""
+
+from .config import ModelConfig, ShapeSpec, LM_SHAPES, reduced
+from .layers import Boxed, unbox, stack_boxed
+from .transformer import (LM, init_lm, apply_lm, init_cache, decode_step,
+                          prefill_cross)
+from .convert import lm_axes, lm_from_params, lm_to_params
+
+__all__ = ["ModelConfig", "ShapeSpec", "LM_SHAPES", "reduced",
+           "Boxed", "unbox", "stack_boxed",
+           "LM", "init_lm", "apply_lm", "init_cache", "decode_step",
+           "prefill_cross", "lm_from_params", "lm_to_params", "lm_axes"]

@@ -350,3 +350,39 @@ def files_agg(files, vocab: int, terms, op: str):
 def files_phrase(files, phrase) -> np.float32:
     """Occurrences of the phrase in the raw files (never across files)."""
     return _SMOKE.phrase_oracle(files, phrase)
+
+
+# ----------------------------------------------------------------------- #
+# The LM zoo                                                               #
+# ----------------------------------------------------------------------- #
+def lm_inputs(cfg, B: int, S: int, rng):
+    """(tokens int32 [B, S], extra_embeds or None) for one model of the
+    zoo: whisper's frame embeddings [B, T, d], pixtral's patch embeddings
+    [B, P, d] (both frontends are stubs)."""
+    toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    extra = None
+    if cfg.family == "encdec":
+        extra = rng.normal(size=(B, cfg.encoder_seq, cfg.d_model))
+    elif cfg.family == "vlm":
+        extra = rng.normal(size=(B, cfg.num_patches, cfg.d_model))
+    return toks, None if extra is None else extra.astype(np.float32)
+
+
+_BIASES = ("bq", "bk", "bv", "bi", "bo", "bias", "conv_b")
+_SCALES = ("scale", "norm")
+
+
+def perturb_lm_params(tree, rng, key=None):
+    """A copy of an unboxed parameter tree (numpy leaves) with its biases
+    and norm scales drawn at random: the init leaves them 0 and 1, which
+    would hide a bias or scale applied on the wrong axis."""
+    if isinstance(tree, dict):
+        return {k: perturb_lm_params(v, rng, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [perturb_lm_params(v, rng, key) for v in tree]
+    a = np.asarray(tree)
+    if key in _BIASES:
+        return (a + 0.1 * rng.normal(size=a.shape)).astype(a.dtype)
+    if key in _SCALES:
+        return (a * (1.0 + 0.1 * rng.normal(size=a.shape))).astype(a.dtype)
+    return a

@@ -5,13 +5,15 @@ package's, on the CPU.
   ``tree_flatten_with_path`` + ``keystr`` on nested dicts, lists, tuples
   and namedtuples.
 * Cross-package: a tree and a mid-ingest corpus snapshot written by either
-  package restore in the other with the same keys, arrays and epoch.
+  package restore in the other with the same keys, arrays and epoch; so
+  does an LM's parameter tree (``lm_to_params`` / ``lm_from_params``),
+  to the same logits (within 1e-4 of scale, two float32 packages).
 * The JAX package's own checkpoint tests, mirrored: round trip, keep-k GC
   and the LATEST pointer, an interrupted write, the every-N manager, a
   missing directory, corpus snapshots (mid-ingest, resume, wrong kind,
   keep-latest).
 
-All comparisons are exact.
+All other comparisons are exact.
 """
 
 import collections
@@ -20,6 +22,7 @@ import json
 import os
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -252,3 +255,57 @@ def test_corpus_snapshot_keeps_latest(tmp_path):
     old, step = tckpt.restore_corpus(str(tmp_path), step=1)
     assert step == 1 and old.epoch == 0
     assert old.ga.num_files == 3 and restored.ga.num_files == 4
+
+
+# ----------------------------------------------------------------------- #
+# Model trees (the LM zoo's parameters)                                    #
+# ----------------------------------------------------------------------- #
+def _qwen2_pair():
+    from repro import models as jm
+    from repro.configs import get_config as jget
+    from repro_torch import models as tm
+    from repro_torch.configs import get_config as tget
+    return (jm, jm.reduced(jget("qwen2_05b"), dtype="float32"),
+            tm, tm.reduced(tget("qwen2_05b"), dtype="float32"))
+
+
+def _logits_close(got, want):
+    """Logits within 1e-4 * max(1, max|want|) (float32, two packages)."""
+    want = np.asarray(want)
+    err = float(np.abs(got.numpy() - want).max())
+    assert err <= 1e-4 * max(1.0, float(np.abs(want).max())), err
+
+
+def test_lm_tree_from_jax_restores_in_port(tmp_path):
+    """The JAX package's checkpoint of ``unbox(init_lm(...))[0]`` restores
+    through ``restore_checkpoint`` + ``lm_from_params`` to the same
+    logits."""
+    jm, jcfg, tm, tcfg = _qwen2_pair()
+    params = jm.unbox(jm.init_lm(jax.random.PRNGKey(4), jcfg))[0]
+    jckpt.save_checkpoint(str(tmp_path), 5, params)
+    template = tm.lm_to_params(tm.init_lm(tcfg, device="cpu"))
+    tree, step, _ = tckpt.restore_checkpoint(str(tmp_path), template)
+    assert step == 5
+    model = tm.lm_from_params(tcfg, tree, device="cpu")
+    toks = np.random.default_rng(4).integers(0, tcfg.vocab_size, (2, 9))
+    want, _ = jm.apply_lm(jcfg, params, jnp.asarray(toks, jnp.int32))
+    with torch.no_grad():
+        got, _ = tm.apply_lm(tcfg, model, toks)
+    _logits_close(got, want)
+
+
+def test_lm_tree_from_port_restores_in_jax(tmp_path):
+    """``lm_to_params`` of a port model, saved by the port, restores in
+    the JAX package leaf for leaf, and the JAX model gives its logits."""
+    jm, jcfg, tm, tcfg = _qwen2_pair()
+    model = tm.init_lm(tcfg, torch.Generator().manual_seed(4), device="cpu")
+    tckpt.save_checkpoint(str(tmp_path), 6, tm.lm_to_params(model))
+    template = jm.unbox(jm.init_lm(jax.random.PRNGKey(0), jcfg))[0]
+    params, step, _ = jckpt.restore_checkpoint(str(tmp_path), template)
+    assert step == 6
+    _leaves_equal(tm.lm_to_params(model), params)
+    toks = np.random.default_rng(5).integers(0, tcfg.vocab_size, (2, 9))
+    want, _ = jm.apply_lm(jcfg, params, jnp.asarray(toks, jnp.int32))
+    with torch.no_grad():
+        got, _ = tm.apply_lm(tcfg, model, toks)
+    _logits_close(got, want)

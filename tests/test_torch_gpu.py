@@ -28,7 +28,7 @@ from repro_torch.kernels.propagate_batched import ell_propagate_batched_cuda
 
 from _torch_inputs import (FUSED_CASES, batch_dags, bincount_inputs,
                            files_agg, files_filter, files_phrase,
-                           files_search, fused_case, plan_inputs,
+                           files_search, fused_case, lm_inputs, plan_inputs,
                            ragged_corpora, vector_case, vector_inputs)
 
 torch.set_num_threads(1)
@@ -887,3 +887,81 @@ def test_sharded_pack_over_every_card_equals_unsharded(cuda):
     mesh = corpus_mesh()
     assert mesh.size == torch.cuda.device_count()
     _sharded_equals_unsharded(mesh)
+
+
+# ------------------------------------------------------------ the LM zoo --
+import dataclasses  # noqa: E402
+
+from repro_torch import models as tm  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
+from repro_torch.serving import make_prefill_step  # noqa: E402
+
+LM_CARD_TOL = 1e-4      # card vs CPU, same weights: * max(1, max|cpu|)
+LM_PARALLEL_TOL = 3e-3  # decode vs parallel (tests/test_models.py's bound)
+
+
+@pytest.fixture
+def full_precision():
+    """float32 matmuls without TF32, as the float32 checks need."""
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    yield
+    torch.set_float32_matmul_precision(old)
+
+
+def _scaled_err(got, want) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max()) / max(1.0,
+                                                 float(want.abs().max()))
+
+
+def _lm_case(cfg, dev, B, S, rng):
+    """The same weights on the CPU and the card; the card's decode of the
+    prompt token by token; (cpu logits, card logits, card parallel text
+    logits, card decode logits)."""
+    cpu = tm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = tm.lm_from_params(cfg, tm.lm_to_params(cpu), device=dev)
+    toks, extra = lm_inputs(cfg, B, S, rng)
+    prefill = make_prefill_step(cfg)
+    want = prefill(cpu, toks, extra_embeds=extra)
+    full = prefill(card, toks, extra_embeds=extra)
+    text = prefill(card, toks) if cfg.family == "vlm" else full
+    cache = tm.init_cache(cfg, B, S, device=dev)
+    outs = []
+    with torch.no_grad():
+        if cfg.family == "encdec":
+            cache = tm.prefill_cross(cfg, card, cache, extra)
+        for t in range(S):
+            lg, cache = tm.decode_step(cfg, card, cache, toks[:, t:t + 1])
+            outs.append(lg)
+    return want, full, text, torch.cat(outs, dim=1)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_lm_on_card_matches_cpu(cuda, full_precision, arch, seeded_rng):
+    """Each reduced float32 arch: card logits within 1e-4 * max(1,
+    max|cpu|) of the CPU's, and its decode within 3e-3 * max(1,
+    max|full|) of its parallel logits (MoE without drops)."""
+    over = {"moe_capacity_factor": 4.0} \
+        if get_config(arch).moe_num_experts else {}
+    cfg = tm.reduced(get_config(arch), dtype="float32", **over)
+    want, full, text, dec = _lm_case(cfg, cuda, 2, 10, seeded_rng)
+    assert full.device.type == "cuda" and bool(torch.isfinite(full).all())
+    assert _scaled_err(full, want) <= LM_CARD_TOL
+    assert _scaled_err(dec, text) <= LM_PARALLEL_TOL
+
+
+def test_qwen2_full_width_on_card(cuda, full_precision, seeded_rng):
+    """qwen2-0.5b at its published widths and depth in float32: card ==
+    CPU, decode == parallel, and the greedy tokens equal wherever the top-2
+    margin exceeds the bound."""
+    cfg = dataclasses.replace(get_config("qwen2_05b"), dtype="float32")
+    want, full, text, dec = _lm_case(cfg, cuda, 2, 8, seeded_rng)
+    assert _scaled_err(full, want) <= LM_CARD_TOL
+    assert _scaled_err(dec, text) <= LM_PARALLEL_TOL
+    bound = LM_PARALLEL_TOL * max(1.0, float(text.abs().max()))
+    margins = [torch.topk(x, 2, dim=-1).values for x in (text, dec)]
+    margin = torch.minimum(*[m[..., 0] - m[..., 1] for m in margins])
+    flips = text.argmax(-1) != dec.argmax(-1)
+    assert bool((margin[flips] < bound).all())
