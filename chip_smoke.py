@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's analytics engines, its analytics server and
-its LM serving path once on one NVIDIA H100.
+its LM serving and training paths once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -122,6 +122,28 @@ CUDA toolkit.  Phases:
    at the search shape and the full-width router shape against
    ``torch.topk``.  Every number is printed beside the card's name and
    power limit.
+10. LM training (``[train]``), counts zeroed just before and read just
+   after (no kernel on this path either).  (a) ``qwen2-0.5b`` at its
+   published widths with two layers in float32 (no TF32), the same
+   host-drawn weights on the card and the CPU, B=2, S=64: the loss
+   (``remat=True``) within 1e-5 relative, every gradient leaf within
+   1e-4 * max(1, max|cpu leaf|), the parameters after one AdamW step
+   (lr 1e-2, two microbatches) within 5e-3 (the JAX package's
+   microbatch bound); ``topk_compress`` (k 1%) and ``int8_roundtrip`` of
+   the CPU's gradients equal on both devices.  (b) The published
+   widths and depth in bf16 over a store built here (32 files x 16,384
+   tokens, vocab 20,000, seed 17) through ``BatchPipeline`` (B=2, S=4096,
+   two microbatches, remat, AdamW lr 1e-3 with warmup 2), 20 steps of
+   the driver ``train``: every loss finite, the mean of the last 4 below
+   the first.  (d) Its numbers: a step's ms on the host clock (median of
+   the steady steps), tokens/s, the model-FLOP share of the bf16 spec
+   peak, peak memory (remat on; at S=1024 remat on and off), a step's
+   device time and operations (``torch.profiler``) and the device's busy
+   share.  (c) Under deterministic algorithms (``CUBLAS_WORKSPACE_CONFIG``
+   is set at the top of this script), a run crashed at step 12 by the
+   ``FailureInjector`` and resumed from its step-8 checkpoint must give
+   losses 8-19 bit-equal to an uncrashed run's.  (e) The launcher
+   ``repro_torch.launch.train`` for 4 steps at the same widths.
 
 Phases 1-7 run with no tuned table (``REPRO_AUTOTUNE_CACHE`` points at a
 file that does not exist), so they launch the shipped shapes.
@@ -143,6 +165,9 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# deterministic cuBLAS for the training phase's restart check; read when
+# cuBLAS starts, so set before anything touches the card
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # the data (phase 2)
 N_CORPORA = 16
@@ -197,6 +222,28 @@ SHARD_COUNTS = (2, 3)
 SHARD_METHODS = ("frontier", "frontier_ell", "frontier_fused")
 SHARD_KERNELS = ("ell_propagate_batched", "ell_frontier_fused",
                  "ell_propagate_vector", "weighted_bincount")
+
+# the training phase (phase 10): qwen2-0.5b; (a) float32, published
+# widths, two layers, card vs CPU; (b) bf16, published widths and depth,
+# train_4k's per-chip share twice over; (c) a crash and a resume; (e) the
+# launcher
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_B, TRAIN_CHECK_S = 2, 2, 64
+TRAIN_CHECK_LR = 1e-2
+TRAIN_LOSS_RTOL = 1e-5              # card vs CPU loss, relative
+TRAIN_GRAD_TOL = 1e-4               # card vs CPU gradients: * max(1, max|cpu|)
+TRAIN_STEP_TOL = 5e-3               # parameters after a step (the JAX
+                                    # package's microbatch bound)
+TRAIN_TOPK_FRAC = 0.01
+TRAIN_FILES, TRAIN_FILE_TOKENS, TRAIN_VOCAB, TRAIN_SEED = 32, 16384, 20000, 17
+TRAIN_B, TRAIN_S, TRAIN_MICROBATCHES = 2, 4096, 2
+TRAIN_SHORT_S = 1024                # peak memory with remat on and off
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH = 20, 8, 12
+TRAIN_LOG_EVERY = 5
+TRAIN_PROFILE_STEPS = 2
+TRAIN_LAUNCH_STEPS = 4
+BF16_PEAK = 989.4e12                # H100 SXM, bf16 dense, spec sheet
 
 TIMING_REPS = 20
 TIMING_WARMUP = 3
@@ -1610,14 +1657,22 @@ def device_mean(fn, dev, calls: int):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    # a trace now and then comes back without the device's activities;
+    # such a trace is taken again, as in device_split
+    for _ in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize(dev)
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False)]
-    check(bool(evs), "the profiler traced no device activity")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize(dev)
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+        if evs:
+            break
+        log(f"trace of {calls} calls held no device activity; tracing "
+            f"again")
+    check(bool(evs), f"the profiler traced no device activity in "
+          f"{PROFILE_ATTEMPTS} traces")
     total_us = sum(e.time_range.elapsed_us() for e in evs)
     return total_us / calls / 1e3, len(evs) / calls
 
@@ -1773,6 +1828,296 @@ def lm_phase(dev, smi: str, cut=None):
     return records
 
 
+# ----------------------------------------------------------------------- #
+# LM training (phase 10): AdamW, remat, microbatches, the driver, resume   #
+# ----------------------------------------------------------------------- #
+def _tree_to(tree, dev):
+    """A copy of a nested dict / list tree of tensors on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def train_check(cfg, dev, B: int, S: int) -> None:
+    """(a): float32 training on the card against the CPU, the same
+    host-drawn weights: the loss (``remat=True``) within TRAIN_LOSS_RTOL,
+    every gradient leaf within TRAIN_GRAD_TOL * max(1, max|cpu leaf|),
+    the parameters after one AdamW step (two microbatches) within
+    TRAIN_STEP_TOL; then ``topk_compress`` and ``int8_roundtrip`` of the
+    CPU's gradients on both devices, which must be equal."""
+    import torch
+    from repro_torch import models as tm
+    from repro_torch import training as tt
+    from repro_torch.checkpoint import flatten_with_paths
+    t0 = time.perf_counter()
+    cpu = tm.init_lm(cfg, torch.Generator().manual_seed(LM_SEED),
+                     device="cpu")
+    card = tm.lm_from_params(cfg, tm.lm_to_params(cpu), device=dev)
+    rng = np.random.default_rng(LM_SEED)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32))
+        for k in ("tokens", "labels")}
+    loss_fn = tt.make_loss_fn(cfg, remat=True)
+    losses, grads = [], []
+    for model in (cpu, card):
+        model.requires_grad_(True)
+        loss, _ = loss_fn(model, _tree_to(batch, model.device))
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append(tm.lm_grads(model))
+        model.zero_grad(set_to_none=True)
+    loss_err = abs(losses[1] - losses[0]) / abs(losses[0])
+    check(loss_err <= TRAIN_LOSS_RTOL, f"[train] card loss {losses[1]} vs "
+          f"CPU {losses[0]}: {loss_err:.3g} relative (bound "
+          f"{TRAIN_LOSS_RTOL})")
+    want = flatten_with_paths(grads[0])
+    got = dict(flatten_with_paths(grads[1]))
+    grad_err = max(lm_scaled_err(got[k].cpu(), v) for k, v in want)
+    check(grad_err <= TRAIN_GRAD_TOL, f"[train] card gradients differ from "
+          f"the CPU's by {grad_err:.3g} of scale (bound {TRAIN_GRAD_TOL})")
+
+    opt = tt.AdamW(lr=TRAIN_CHECK_LR)
+    stepped = []
+    for model in (cpu, card):
+        step = tt.make_train_step(cfg, opt, remat=True,
+                                  microbatches=TRAIN_MICROBATCHES)
+        model, _, met = step(model, opt.init(tm.lm_to_params(model)),
+                             _tree_to(batch, model.device))
+        check(bool(np.isfinite(float(met["loss"]))), "[train] float32 step "
+              "loss not finite")
+        stepped.append(flatten_with_paths(tm.lm_to_params(model)))
+    step_err = max(max_abs_err(g.cpu(), w) for (_, g), (_, w)
+                   in zip(stepped[1], stepped[0]))
+    check(step_err <= TRAIN_STEP_TOL, f"[train] card parameters after one "
+          f"AdamW step differ from the CPU's by {step_err:.3g} (bound "
+          f"{TRAIN_STEP_TOL})")
+    del cpu, card, stepped
+
+    g_card = _tree_to(grads[0], dev)
+    for name, fn in (("topk_compress", lambda g: tt.topk_compress(
+            g, tt.init_error(g), TRAIN_TOPK_FRAC)),
+            ("int8_roundtrip", tt.int8_roundtrip)):
+        want = flatten_with_paths(fn(grads[0]))
+        got = flatten_with_paths(fn(g_card))
+        for (k, w), (_, g) in zip(want, got):
+            check(torch.equal(g.cpu(), w), f"[train] {name} on the card "
+                  f"differs from the CPU's at {k}")
+    log(f"[train] {cfg.name} float32 ({cfg.num_layers} layers, vocab "
+        f"{cfg.vocab_size}, B={B} S={S}, remat, {TRAIN_MICROBATCHES} "
+        f"microbatches): card vs CPU loss {loss_err:.3g} relative (bound "
+        f"{TRAIN_LOSS_RTOL}), gradients {grad_err:.3g} of scale (bound "
+        f"{TRAIN_GRAD_TOL}), parameters after one AdamW step "
+        f"{step_err:.3g} (bound {TRAIN_STEP_TOL}); topk_compress (k "
+        f"{TRAIN_TOPK_FRAC:.0%}) and int8_roundtrip equal on both; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def train_phase(dev, smi: str, cut=None, seq_len=TRAIN_S,
+                files=TRAIN_FILES, tokens_per_file=TRAIN_FILE_TOKENS,
+                short_seq=TRAIN_SHORT_S):
+    """Phase 10.  ``cut``, ``seq_len``, ``files``, ``tokens_per_file``,
+    ``short_seq``: a CPU rehearsal's smaller sizes (it skips the device
+    measurements and the launcher); the card runs the published widths
+    and depth at the defaults."""
+    import dataclasses
+    import torch
+    from repro_torch import models as tm
+    from repro_torch import training as tt
+    from repro_torch.configs import get_config
+    from repro_torch.data import BatchPipeline, CompressedCorpus
+    from repro_torch.launch import train as launcher
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    # the float32 check needs full-precision matmuls (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cut = cut or {}
+
+    # (a) float32, published widths, two layers: card == CPU
+    train_check(dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32",
+                                    num_layers=TRAIN_CHECK_LAYERS,
+                                    **{k: v for k, v in cut.items()
+                                       if k != "num_layers"}),
+                dev, TRAIN_CHECK_B, TRAIN_CHECK_S)
+
+    # (b) bf16 at the published widths and depth over a compressed store
+    t0 = time.perf_counter()
+    cc = CompressedCorpus.build(
+        corpus_files("train", files, tokens_per_file, TRAIN_VOCAB,
+                     TRAIN_SEED), vocab_size=TRAIN_VOCAB)
+    log(f"[train] store: {files} files x {tokens_per_file} tokens (vocab "
+        f"{TRAIN_VOCAB}, seed {TRAIN_SEED}) built in "
+        f"{time.perf_counter() - t0:.1f} s: {cc.stats()}")
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), **cut)
+    if cuda:
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated(dev)
+    model = tm.init_lm(cfg, torch.Generator().manual_seed(LM_SEED),
+                       device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    with torch.no_grad():
+        init = [p.detach().clone() for p in model.parameters()]
+
+    def fresh():
+        with torch.no_grad():
+            for p, p0 in zip(model.parameters(), init):
+                p.copy_(p0)
+        return model
+
+    opt = tt.AdamW(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    step_fn = tt.make_train_step(cfg, opt, remat=True,
+                                 microbatches=TRAIN_MICROBATCHES)
+    pipe = BatchPipeline(cc, global_batch=TRAIN_B, seq_len=seq_len,
+                         prefetch=2)
+    times = []
+
+    class StepTimes(tt.StragglerWatchdog):
+        """The driver's watchdog, keeping every step's seconds."""
+        def observe(self, step, dt):
+            times.append(dt)
+            return super().observe(step, dt)
+
+    watchdog = StepTimes(on_straggler=lambda s, dt, ema: log(
+        f"[train] straggler at step {s}: {dt * 1e3:.1f} ms against an EMA "
+        f"of {ema * 1e3:.1f} ms"))
+
+    def run(**kw):
+        return tt.train(cfg, fresh(), opt, pipe, steps=TRAIN_STEPS,
+                        ckpt_every=TRAIN_CKPT_EVERY, train_step=step_fn,
+                        log_every=TRAIN_LOG_EVERY, log=log, **kw)["history"]
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    hist = run(watchdog=watchdog)
+    run_s = time.perf_counter() - t0
+    check(all(np.isfinite(hist)), f"[train] a loss is not finite: {hist}")
+    tail = float(np.mean(hist[-4:]))
+    check(tail < hist[0], f"[train] the loss did not fall: first "
+          f"{hist[0]:.4f}, mean of the last 4 {tail:.4f}")
+    tokens = TRAIN_B * seq_len
+    step_ms = statistics.median(times[TRAIN_WARMUP:]) * 1e3
+    log(f"[train] {cfg.name} {cfg.dtype} ({cfg.num_layers} layers, "
+        f"{n_params} parameters), B={TRAIN_B} S={seq_len}, remat, "
+        f"{TRAIN_MICROBATCHES} microbatches, AdamW lr {TRAIN_LR} warmup "
+        f"{TRAIN_WARMUP}: {TRAIN_STEPS} steps in {run_s:.1f} s, loss "
+        f"{hist[0]:.4f} -> {hist[-1]:.4f} (mean of the last 4 {tail:.4f}), "
+        f"{watchdog.events} stragglers ({smi})")
+    log(f"[train]   losses {hist}")
+    if cuda:
+        peak = torch.cuda.max_memory_allocated(dev)
+        flop = 6 * n_params * tokens
+        log(f"[train]   step {step_ms:.5g} ms (host clock, median of steps "
+            f"{TRAIN_WARMUP}-{TRAIN_STEPS - 1}), {tokens / step_ms * 1e3:.6g} "
+            f"tokens/s, model FLOP share {flop / (step_ms / 1e3) / BF16_PEAK:.2%}"
+            f" (6 x {n_params} parameters x {tokens} tokens a step over "
+            f"{BF16_PEAK / 1e12:g} TFLOP/s, the H100 SXM bf16 dense spec "
+            f"figure) ({smi})")
+        log(f"[train]   peak memory {peak - held} B above the {held} B the "
+            f"earlier phases hold, remat on, S={seq_len} "
+            f"(torch.cuda.max_memory_allocated) ({smi})")
+
+    # (d) peak memory at a shorter sequence, remat on and off; a step's
+    # device time (torch.profiler) against its host time
+    x, y = pipe.batch_at(0)
+    for remat in (True, False):
+        fn = tt.make_train_step(cfg, opt, remat=remat,
+                                microbatches=TRAIN_MICROBATCHES)
+        short = {"tokens": torch.from_numpy(x[:, :short_seq]).to(dev),
+                 "labels": torch.from_numpy(y[:, :short_seq]).to(dev)}
+        state = opt.init(tm.lm_to_params(fresh()))
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        _, state, met = fn(model, state, short)
+        check(bool(np.isfinite(float(met["loss"]))), f"[train] loss at "
+              f"S={short_seq}, remat {remat}, not finite")
+        if cuda:
+            log(f"[train]   peak memory {torch.cuda.max_memory_allocated(dev) - held}"
+                f" B above the earlier phases', S={short_seq}, remat "
+                f"{'on' if remat else 'off'} ({smi})")
+        del state
+    if cuda:
+        state = [opt.init(tm.lm_to_params(fresh()))]
+        full = {"tokens": torch.from_numpy(x).to(dev),
+                "labels": torch.from_numpy(y).to(dev)}
+
+        def one_step():
+            _, state[0], met = step_fn(model, state[0], full)
+            float(met["loss"])
+        one_step()
+        dev_ms, ops_a_step = device_mean(one_step, dev, TRAIN_PROFILE_STEPS)
+        log(f"[train]   step device_ms {dev_ms:.5g} (torch.profiler, mean "
+            f"of {TRAIN_PROFILE_STEPS}, {ops_a_step:g} device ops a step) "
+            f"against {step_ms:.5g} ms on the host clock: the card is busy "
+            f"{dev_ms / step_ms:.1%} of the step ({smi})")
+        del state
+
+    # (c) restart exactness: a crash at TRAIN_CRASH and a resume from the
+    # step-TRAIN_CKPT_EVERY checkpoint against the run without the crash,
+    # deterministic algorithms on (the embedding's backward accumulates
+    # with atomics otherwise)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            ref = run()
+            try:
+                run(ckpt_dir=tmp, injector=tt.FailureInjector(TRAIN_CRASH))
+            except RuntimeError as e:
+                check(f"injected failure at step {TRAIN_CRASH}" in str(e),
+                      f"[train] the crashed run failed otherwise: {e}")
+            else:
+                check(False, "[train] the injected failure did not fire")
+            ck = os.path.join(tmp, f"step_{TRAIN_CKPT_EVERY:09d}")
+            ck_bytes = sum(os.path.getsize(os.path.join(ck, f))
+                           for f in os.listdir(ck))
+            # every TRAIN_STEPS + 1 steps: the resumed run writes nothing
+            resumed = tt.train(cfg, fresh(), opt, pipe, steps=TRAIN_STEPS,
+                               ckpt_dir=tmp, ckpt_every=TRAIN_STEPS + 1,
+                               train_step=step_fn,
+                               log_every=TRAIN_LOG_EVERY, log=log)["history"]
+            det_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(len(resumed) == TRAIN_STEPS - TRAIN_CKPT_EVERY,
+          f"[train] the resumed run took {len(resumed)} steps")
+    diff = max(abs(a - b) for a, b in zip(resumed, ref[TRAIN_CKPT_EVERY:]))
+    check(resumed == ref[TRAIN_CKPT_EVERY:], f"[train] losses after the "
+          f"resume differ from the run without the crash by up to {diff:.3g}:"
+          f" {resumed} vs {ref[TRAIN_CKPT_EVERY:]}")
+    log(f"[train] restart: crash at step {TRAIN_CRASH}, resume from the "
+        f"step-{TRAIN_CKPT_EVERY} checkpoint ({ck_bytes} B on disk): losses "
+        f"{TRAIN_CKPT_EVERY}-{TRAIN_STEPS - 1} bit-equal to the run without "
+        f"the crash (deterministic algorithms; three runs in {det_s:.1f} s)")
+    pipe.close()
+    del model, init, step_fn
+    if cuda:
+        torch.cuda.empty_cache()
+
+        # (e) the launcher a user calls, at the same widths
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "train_store.npz")
+            cc.save(path)
+            t0 = time.perf_counter()
+            out = launcher.main([
+                "--arch", TRAIN_ARCH, "--corpus", path, "--steps",
+                str(TRAIN_LAUNCH_STEPS), "--global-batch", str(TRAIN_B),
+                "--seq-len", str(seq_len), "--microbatches",
+                str(TRAIN_MICROBATCHES), "--device", str(dev)])
+        check(len(out["history"]) == TRAIN_LAUNCH_STEPS
+              and all(np.isfinite(out["history"])),
+              f"[train] the launcher's losses: {out['history']}")
+        log(f"[train]   launcher: {TRAIN_LAUNCH_STEPS} steps in "
+            f"{time.perf_counter() - t0:.1f} s with its set-up, losses "
+            f"{out['history']} ({smi})")
+        del out
+        torch.cuda.empty_cache()
+    log(f"[train] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
 def run(dev, n_corpora=N_CORPORA, n_files=N_FILES,
         tokens_per_file=TOKENS_PER_FILE, vocab=VOCAB,
         single_files=SINGLE_FILES):
@@ -1904,6 +2249,10 @@ def main() -> int:
     log(f"[lm] launches {launch_counts()} (the LM path has no kernel of "
         f"its own)")
     log("[lm] masked_top_k " + json.dumps(topk))
+    reset_launch_counts()
+    train_phase(dev, smi)
+    log(f"[train] launches {launch_counts()} (the training path has no "
+        f"kernel of its own)")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

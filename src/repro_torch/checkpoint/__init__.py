@@ -5,8 +5,8 @@ format, so a checkpoint written by either package restores in the other."""
 
 from .ckpt import (CheckpointManager, flatten_with_paths, latest_step,
                    restore_checkpoint, restore_corpus, save_checkpoint,
-                   save_corpus)
+                   save_corpus, unflatten)
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "save_corpus", "restore_corpus", "CheckpointManager",
-           "flatten_with_paths"]
+           "flatten_with_paths", "unflatten"]

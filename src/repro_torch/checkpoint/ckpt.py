@@ -25,8 +25,9 @@ strings — plain dict keys sorted (an ``OrderedDict`` keeps its order),
 ``.name`` for namedtuple fields, ``None`` an empty subtree, every other
 object a leaf — and npz member names escape ``/`` as ``|``.  So a
 checkpoint written by either package restores in the other.
-:func:`restore_checkpoint` returns numpy leaves, as the JAX package does;
-placing them on a device is the caller's job.
+:func:`restore_checkpoint` returns numpy leaves, as the JAX package does
+(a bfloat16 leaf, which numpy cannot hold, comes back as a
+``torch.bfloat16`` tensor); placing them on a device is the caller's job.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import collections
 import json
 import os
 import shutil
+import zipfile
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -83,7 +85,7 @@ def flatten_with_paths(tree) -> List[Tuple[str, Any]]:
     return out
 
 
-def _unflatten(template, leaves: List[Any]):
+def unflatten(template, leaves: List[Any]):
     """``template``'s structure with its leaves replaced, in order."""
     it = iter(leaves)
 
@@ -109,11 +111,56 @@ def _unflatten(template, leaves: List[Any]):
     return build(template)
 
 
-def _host_array(leaf) -> np.ndarray:
-    """A leaf as a host numpy array (tensors are copied off the device)."""
+# the .npy type of an ``ml_dtypes`` bfloat16 array, as the JAX package's
+# checkpoints declare it: raw little-endian 2-byte values
+_BF16_DESCR = "<V2"
+
+
+def _host_array(leaf) -> Tuple[np.ndarray, str]:
+    """A leaf as a host numpy array (tensors are copied off the device)
+    and the dtype name the manifest records.  numpy has no bfloat16: a
+    bfloat16 tensor becomes its raw 2-byte values (a ``V2`` array) named
+    "bfloat16", as the JAX package records an ``ml_dtypes`` array."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return (t.contiguous().view(torch.int16).numpy().view("V2"),
+                    "bfloat16")
+        arr = t.numpy()
+    else:
+        arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def _restored_leaf(arr: np.ndarray, dtype: Optional[str]):
+    """A saved array as the caller gets it back: numpy, except a
+    bfloat16 entry (``|V2`` on disk, written by either package), which
+    becomes a ``torch.bfloat16`` tensor with the same bits."""
+    if dtype == "bfloat16" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(
+            np.ascontiguousarray(arr).view(np.int16).copy()
+        ).view(torch.bfloat16)
+    return arr
+
+
+def _write_npz(path: str, arrays: Dict[str, np.ndarray],
+               dtypes: Dict[str, str]) -> None:
+    """``np.savez(path, **arrays)``, member for member the same bytes,
+    except that a bfloat16 leaf's header declares ``_BF16_DESCR`` (numpy
+    alone would write ``|V2``), so the file equals the JAX package's.
+    npz member names cannot contain '/': it is escaped as '|'."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, arr in arrays.items():
+            name = key.replace("/", "|") + ".npy"
+            with zf.open(name, "w", force_zip64=True) as f:
+                if dtypes[key] != "bfloat16":
+                    np.lib.format.write_array(f, arr, allow_pickle=False)
+                    continue
+                np.lib.format.write_array_header_1_0(f, {
+                    "descr": _BF16_DESCR, "fortran_order": False,
+                    "shape": arr.shape})
+                f.write(np.ascontiguousarray(arr).tobytes())
 
 
 # ----------------------------------------------------------------------- #
@@ -123,7 +170,10 @@ def save_checkpoint(directory: str, step: int, tree: Any,
                     extra: Optional[Dict] = None, keep: int = 3) -> str:
     """Write ``tree`` as step ``step`` under ``directory``, publish it as
     ``LATEST`` and keep the last ``keep`` steps.  Returns the step dir."""
-    flat = [(k, _host_array(v)) for k, v in flatten_with_paths(tree)]
+    flat, dtypes = [], {}
+    for k, v in flatten_with_paths(tree):
+        arr, dtypes[k] = _host_array(v)
+        flat.append((k, arr))
     step_dir = os.path.join(directory, f"step_{step:09d}")
     tmp_dir = step_dir + ".tmp"
     os.makedirs(tmp_dir, exist_ok=True)
@@ -141,14 +191,13 @@ def save_checkpoint(directory: str, step: int, tree: Any,
         shard_map[key] = sid
 
     for sid, shard in enumerate(shards):
-        # npz member names cannot contain '/': escape
-        np.savez(os.path.join(tmp_dir, f"shard_{sid:05d}.npz"),
-                 **{k.replace("/", "|"): v for k, v in shard.items()})
+        _write_npz(os.path.join(tmp_dir, f"shard_{sid:05d}.npz"), shard,
+                   dtypes)
     manifest = {
         "step": step,
         "keys": [k for k, _ in flat],
         "shard_map": shard_map,
-        "dtypes": {k: str(v.dtype) for k, v in flat},
+        "dtypes": dtypes,
         "extra": extra or {},
     }
     with open(os.path.join(tmp_dir, "manifest.json"), "w") as f:
@@ -198,9 +247,11 @@ def restore_checkpoint(directory: str, template: Any,
                                               f"shard_{sid:05d}.npz"))
         return cache[sid]
 
-    values = [shard(manifest["shard_map"][key])[key.replace("/", "|")]
-              for key, _ in flatten_with_paths(template)]
-    return (_unflatten(template, values), manifest["step"],
+    dtypes = manifest.get("dtypes", {})
+    values = [_restored_leaf(
+        shard(manifest["shard_map"][key])[key.replace("/", "|")],
+        dtypes.get(key)) for key, _ in flatten_with_paths(template)]
+    return (unflatten(template, values), manifest["step"],
             manifest.get("extra", {}))
 
 

@@ -17,6 +17,13 @@ transpose.
 * :func:`lm_axes` gives every parameter's logical axes keyed like that
   checkpoint's flattened keys (``jax.tree_util.keystr`` of the JAX
   layout), the counterpart of the axes half of ``unbox``.
+* Training: :func:`lm_load_params` copies a tree in the JAX layout into
+  a model in place (resume); :func:`lm_grads` gives the parameters'
+  ``.grad`` in the JAX layout (``jax.value_and_grad``'s tree);
+  :func:`adamw_state_from_jax` / :func:`adamw_state_to_jax` carry an
+  ``AdamWState`` (count, moments in the JAX layout) between numpy and
+  the device; :func:`layer_views` reads a JAX-layout tree one layer at a
+  time (views of the stacked tensors: the optimizer writes through them).
 
 This extends the port's carry-over convention (the engine's state is
 ``GrammarArrays`` from numpy).
@@ -52,8 +59,9 @@ def _jax_layout(cfg: ModelConfig, tree: Dict, stack: Callable) -> Dict:
     return out
 
 
-def _per_layer(cfg: ModelConfig, params: Dict) -> Dict:
-    """The JAX package's stacked tree unstacked into one node a layer."""
+def layer_views(cfg: ModelConfig, params: Dict) -> Dict:
+    """The JAX package's stacked tree unstacked into one node a layer,
+    each layer's leaf a view of the stacked array (numpy or torch)."""
     bs = cfg.block_size
     repeats = cfg.num_layers // bs
     if len(params["blocks"]) != bs:
@@ -75,10 +83,33 @@ def _per_layer(cfg: ModelConfig, params: Dict) -> Dict:
 
 
 def _to_tensor(a) -> torch.Tensor:
+    """A leaf as a tensor of its own (never sharing the leaf's memory)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().clone()
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":      # ml_dtypes: torch cannot read it
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     return torch.from_numpy(a.copy())
+
+
+def _fill(cfg: ModelConfig, want, params: Dict, put) -> None:
+    """``put(target, tensor)`` for every ``(key, target)`` of ``want``
+    with the leaf of the JAX-layout tree ``params`` under that key, after
+    checking that both trees hold the same keys, shapes and dtypes."""
+    got = dict(flatten_with_paths(layer_views(cfg, params)))
+    missing = [k for k, _ in want if k not in got]
+    extra = sorted(set(got) - {k for k, _ in want})
+    if missing or extra:
+        raise ValueError(f"{cfg.name}: parameter trees differ: missing "
+                         f"{missing[:5]}, unexpected {extra[:5]}")
+    for key, target in want:
+        t = _to_tensor(got[key])
+        ref = target.value if isinstance(target, Boxed) else target
+        if t.shape != ref.shape or t.dtype != ref.dtype:
+            raise ValueError(f"{cfg.name}: {key} is {tuple(t.shape)} "
+                             f"{t.dtype}, expected {tuple(ref.shape)} "
+                             f"{ref.dtype}")
+        put(target, t)
 
 
 def lm_from_params(cfg: ModelConfig, params: Dict, device=None) -> LM:
@@ -87,29 +118,68 @@ def lm_from_params(cfg: ModelConfig, params: Dict, device=None) -> LM:
     with the same shape and dtype."""
     dev = resolve_device(device)
     skeleton = init_tree(cfg, None)
-    want = flatten_with_paths(skeleton)
-    got = dict(flatten_with_paths(_per_layer(cfg, params)))
-    missing = [k for k, _ in want if k not in got]
-    extra = sorted(set(got) - {k for k, _ in want})
-    if missing or extra:
-        raise ValueError(f"{cfg.name}: parameter trees differ: missing "
-                         f"{missing[:5]}, unexpected {extra[:5]}")
-    for key, box in want:
-        t = _to_tensor(got[key])
-        if t.shape != box.value.shape or t.dtype != box.value.dtype:
-            raise ValueError(f"{cfg.name}: {key} is {tuple(t.shape)} "
-                             f"{t.dtype}, expected "
-                             f"{tuple(box.value.shape)} {box.value.dtype}")
+
+    def put(box, t):
         box.value = t
+    _fill(cfg, flatten_with_paths(skeleton), params, put)
     return LM(cfg, skeleton).to(dev)
+
+
+@torch.no_grad()
+def lm_load_params(model: LM, params: Dict) -> LM:
+    """Copy ``params`` (the JAX layout, numpy or tensor leaves, e.g. a
+    restored checkpoint's) into ``model``'s parameters in place."""
+    _fill(model.cfg, flatten_with_paths(param_tree(model)), params,
+          lambda p, t: p.copy_(t))
+    return model
+
+
+def param_tree(model: LM) -> Dict:
+    """The model's parameters as one nested dict a layer (the port's
+    layout), the leaves the parameters themselves."""
+    return unbox(model.boxed_tree())[0]
 
 
 def lm_to_params(model: LM) -> Dict:
     """The model's parameters in the JAX package's stacked layout (tensor
-    leaves on the model's device)."""
-    params, _ = unbox(model.boxed_tree())
-    return _jax_layout(model.cfg, params,
-                       lambda ts: torch.stack([t.detach() for t in ts]))
+    leaves on the model's device, detached: the stacked leaves are
+    copies, the others share the parameters' memory)."""
+    return _jax_layout(model.cfg, tree_map(torch.Tensor.detach,
+                                           param_tree(model)), torch.stack)
+
+
+def lm_grads(model: LM) -> Dict:
+    """The parameters' ``.grad`` in the JAX package's stacked layout
+    (zeros where no gradient reached a parameter, as ``jax.grad`` gives
+    them)."""
+    grads = tree_map(lambda p: (p.grad if p.grad is not None
+                                else torch.zeros_like(p)).detach(),
+                     param_tree(model))
+    return _jax_layout(model.cfg, grads, torch.stack)
+
+
+def adamw_state_from_jax(state, device=None):
+    """The port's ``AdamWState`` on ``device`` (the card unless the
+    caller asks for the CPU) from an ``AdamWState`` of the JAX package
+    or a restored checkpoint: count int32, moments in the JAX layout."""
+    # imported here: the training package imports this one
+    from repro_torch.training.optimizer import AdamWState
+    dev = resolve_device(device)
+
+    def conv(a):
+        return _to_tensor(a).to(dev)
+    return AdamWState(count=conv(np.asarray(state.count, np.int32)),
+                      mu=tree_map(conv, state.mu),
+                      nu=tree_map(conv, state.nu))
+
+
+def adamw_state_to_jax(state):
+    """``state`` with numpy leaves, field for field the JAX package's
+    ``AdamWState(count, mu, nu)``."""
+    def conv(t):
+        return t.detach().cpu().numpy()
+    return type(state)(count=conv(state.count), mu=tree_map(conv, state.mu),
+                       nu=tree_map(conv, state.nu))
 
 
 def lm_axes(model: LM) -> Dict[str, Tuple]:

@@ -19,23 +19,30 @@ loop, but keeps the cache LAYOUT of ``init_cache`` — ``cache["layers"]
 [p_pos]["k"]`` is ``[repeats, B, max_len, Hkv, hd]`` — so the two caches
 compare entry by entry.  ``decode_step`` writes the cache in place and
 returns it; ``cache["pos"]`` is a host ``int`` (no device sync a step),
-where the JAX package threads an int32 scalar.  ``remat`` and ``unroll``
-are XLA compile controls with no equivalent here: they are accepted and
-change nothing.  ``constrain`` marks the JAX package's sharding points
-and is the identity (``models/partitioning.py``).
+where the JAX package threads an int32 scalar.  ``remat`` is the JAX
+package's ``jax.checkpoint`` of each block: under autograd, ``True`` /
+``"full"`` recomputes each layer (and each encoder layer) in the backward
+pass (``torch.utils.checkpoint``), ``"dots"`` keeps the weight matmuls'
+outputs and recomputes the rest; without gradients it changes nothing.
+``unroll`` is an XLA compile control with no equivalent here: it is
+accepted and changes nothing.  ``constrain`` marks the JAX package's
+sharding points and is the identity (``models/partitioning.py``).
 
-Parameters are created with ``requires_grad=False``: this is the serving
-path.  Whisper's and Pixtral's frontends are stubs, as in the JAX
-package: the caller passes frame / patch embeddings.
+Parameters are created with ``requires_grad=False``, for the serving
+path; the train step turns them on (``training/step.py``).  Whisper's
+and Pixtral's frontends are stubs, as in the JAX package: the caller
+passes frame / patch embeddings.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels._common import resolve_device
 
@@ -238,18 +245,51 @@ def _ffn_block(cfg, p, x):
     return x, zero   # mixer-only layer (mamba2)
 
 
-def _encoder(cfg, model, frames: torch.Tensor) -> torch.Tensor:
+# --------------------------------------------------------------- remat --
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the weight matmuls' outputs, recompute everything else."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(remat, model: LM) -> Callable:
+    """``f -> f'`` running ``f(*args)`` under ``remat`` when gradients
+    flow into the model's parameters, else ``f`` itself."""
+    if not remat or not torch.is_grad_enabled() or not any(
+            p.requires_grad for p in model.parameters()):
+        return lambda f: f
+    # the forward draws no random numbers: no RNG state to carry over
+    opts = dict(use_reentrant=False, preserve_rng_state=False)
+    if remat == "dots":
+        opts["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    elif remat not in (True, "full"):
+        raise ValueError(f"unknown remat {remat!r}; expected True, False, "
+                         f"'full' or 'dots'")
+    return lambda f: functools.partial(ckpt.checkpoint, f, **opts)
+
+
+def _encoder(cfg, model, frames: torch.Tensor,
+             wrap: Callable = lambda f: f) -> torch.Tensor:
     """Whisper encoder over stub frame embeddings [B, T, d] (no rope: the
-    sinusoid is added once)."""
+    sinusoid is added once).  ``wrap`` is the remat of each layer."""
     x = frames + torch.from_numpy(_sinusoid(frames.shape[1], cfg.d_model)
                                   ).to(frames.device, frames.dtype)
-    for layer in model["encoder"]["layers"]:
+
+    def body(x, layer):
         h = _apply_norm(cfg, layer["norm1"], x)
         q, k, v = _qkv(layer["attn"], h, cfg)
         ctx = gqa_attention(q, k, v, causal=False, chunk=0)
         x = x + attn_out(layer["attn"], ctx)
         x, _ = _ffn_block(cfg, layer, x)
-        x = constrain(x, "act_btd")
+        return constrain(x, "act_btd")
+
+    for layer in model["encoder"]["layers"]:
+        x = wrap(functools.partial(body, layer=layer))(x)
     return _apply_norm(cfg, model["encoder"]["final_norm"], x)
 
 
@@ -271,10 +311,12 @@ def apply_lm(cfg: ModelConfig, model: LM, tokens,
 
     ``extra_embeds``: whisper frame embeddings [B, T, d] (encoder input) or
     pixtral patch embeddings [B, P, d] (prepended to the text sequence).
-    ``remat`` and ``unroll`` have no equivalent here (module note).
+    ``remat`` recomputes layers in the backward pass, ``unroll`` has no
+    equivalent here (module note).
     """
     dt = _dtype(cfg.dtype)
     dev = model.device
+    wrap = _remat(remat, model)
     tokens = _as_tokens(tokens, dev)
     x = model["embed"].to(dt)[tokens]
     enc_out = None
@@ -284,7 +326,8 @@ def apply_lm(cfg: ModelConfig, model: LM, tokens,
         if extra_embeds is None:
             raise ValueError(f"{cfg.name} needs frame embeddings "
                              f"(extra_embeds [B, T, d])")
-        enc_out = _encoder(cfg, model, extra_embeds)
+        # the JAX package remats the encoder's layers whatever ``remat``
+        enc_out = _encoder(cfg, model, extra_embeds, _remat(True, model))
         x = x + torch.from_numpy(_sinusoid(x.shape[1], cfg.d_model)
                                  ).to(dev, dt)
     elif cfg.family == "vlm" and extra_embeds is not None:
@@ -297,12 +340,16 @@ def apply_lm(cfg: ModelConfig, model: LM, tokens,
     inv_freq = _inv_freq(cfg, dev)
     chunk = ATTN_CHUNK if S > ATTN_CHUNK_THRESHOLD else 0
 
+    def layer(x, lp, kind):
+        x = _mixer(cfg, lp, x, positions, inv_freq, kind=kind, chunk=chunk,
+                   enc_out=enc_out)
+        x, a = _ffn_block(cfg, lp, x)
+        return constrain(x, "act_btd"), a
+
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     for i, lp in enumerate(model["layers"]):
-        x = _mixer(cfg, lp, x, positions, inv_freq, kind=cfg.layer_kind(i),
-                   chunk=chunk, enc_out=enc_out)
-        x, a = _ffn_block(cfg, lp, x)
-        x = constrain(x, "act_btd")
+        x, a = wrap(functools.partial(layer, lp=lp,
+                                      kind=cfg.layer_kind(i)))(x)
         aux = aux + a
     return _logits(cfg, model, x, dt), aux
 

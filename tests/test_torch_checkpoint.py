@@ -20,6 +20,7 @@ import collections
 import dataclasses
 import json
 import os
+import zipfile
 
 import jax
 import jax.numpy as jnp
@@ -309,3 +310,110 @@ def test_lm_tree_from_port_restores_in_jax(tmp_path):
     with torch.no_grad():
         got, _ = tm.apply_lm(tcfg, model, toks)
     _logits_close(got, want)
+
+
+# ----------------------------------------------------------------------- #
+# bfloat16 leaves                                                          #
+# ----------------------------------------------------------------------- #
+# bit patterns: 1.0, -0.0, +inf, -inf, the smallest subnormal, the
+# largest finite, a quiet NaN, and a negative non-integer
+BF16_BITS = np.array([0x3F80, 0x8000, 0x7F80, 0xFF80, 0x0001, 0x7F7F,
+                      0x7FC1, 0xC2F7], np.uint16)
+
+
+def _bf16_bits(rng):
+    """[3, 8] bfloat16 raw bits: the patterns above and random ones."""
+    return np.concatenate([BF16_BITS, rng.integers(
+        0, 1 << 16, 16, dtype=np.uint16)]).reshape(3, 8)
+
+
+def _bf16_tensor(bits):
+    return torch.from_numpy(bits.view(np.int16).copy()).view(torch.bfloat16)
+
+
+def _bits_of(t):
+    assert isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16
+    return t.contiguous().view(torch.int16).numpy().view(np.uint16)
+
+
+def test_bf16_roundtrip_bit_exact(tmp_path, seeded_rng):
+    """A bfloat16 tensor (even a non-contiguous view) saves and restores
+    as a bfloat16 tensor with the same bits; the manifest names it
+    "bfloat16" and the npz holds its raw 2-byte values (``|V2``)."""
+    bits = _bf16_bits(seeded_rng)
+    t = _bf16_tensor(bits)
+    tree = {"w": t, "wt": t.T, "f": torch.arange(3, dtype=torch.float32)}
+    tckpt.save_checkpoint(str(tmp_path), 1, tree)
+    got, _, _ = tckpt.restore_checkpoint(str(tmp_path), tree)
+    np.testing.assert_array_equal(_bits_of(got["w"]), bits)
+    np.testing.assert_array_equal(_bits_of(got["wt"]), bits.T)
+    np.testing.assert_array_equal(got["f"], np.arange(3, dtype=np.float32))
+    step_dir = tmp_path / "step_000000001"
+    manifest = json.loads((step_dir / "manifest.json").read_text())
+    assert manifest["dtypes"] == {"['f']": "float32", "['w']": "bfloat16",
+                                  "['wt']": "bfloat16"}
+    with np.load(step_dir / "shard_00000.npz") as z:
+        assert z["['w']"].dtype == np.dtype("V2")
+
+
+def _bf16_pair(tmp_path, bits):
+    """The same bfloat16 values saved by both packages (JAX through
+    ``ml_dtypes``): the two step directories."""
+    import ml_dtypes
+    tckpt.save_checkpoint(str(tmp_path / "torch"), 2,
+                          {"p": {"w": _bf16_tensor(bits)}})
+    jckpt.save_checkpoint(str(tmp_path / "jax"), 2, {"p": {"w": jnp.asarray(
+        bits.view(ml_dtypes.bfloat16))}})
+    return [tmp_path / d / "step_000000002" for d in ("torch", "jax")]
+
+
+def test_bf16_npz_bytes_equal_jax(tmp_path, seeded_rng):
+    """The port writes the JAX package's bytes: the npz member (the .npy
+    header and the raw values) and the manifest are equal."""
+    ours, theirs = _bf16_pair(tmp_path, _bf16_bits(seeded_rng))
+    for name in ("manifest.json",):
+        assert json.loads((ours / name).read_text()) == json.loads(
+            (theirs / name).read_text())
+    members = []
+    for d in (ours, theirs):
+        with zipfile.ZipFile(d / "shard_00000.npz") as z:
+            members.append({n: z.read(n) for n in z.namelist()})
+    assert members[0] == members[1]
+
+
+def test_bf16_checkpoint_from_jax_restores_in_port(tmp_path, seeded_rng):
+    """A bfloat16 leaf the JAX package wrote restores in the port as a
+    bfloat16 tensor with the same bits.  The JAX package's own restore
+    returns the raw ``|V2`` array (a reference quirk the port does not
+    share)."""
+    bits = _bf16_bits(seeded_rng)
+    _, theirs = _bf16_pair(tmp_path, bits)
+    template = {"p": {"w": 0}}
+    got, step, _ = tckpt.restore_checkpoint(str(tmp_path / "jax"), template)
+    assert step == 2
+    np.testing.assert_array_equal(_bits_of(got["p"]["w"]), bits)
+    ref, _, _ = jckpt.restore_checkpoint(str(tmp_path / "jax"), template)
+    assert ref["p"]["w"].dtype == np.dtype("V2")
+
+
+def test_bf16_lm_tree_resumes_bit_exact(tmp_path):
+    """A bfloat16 model's parameters (the published dtype) round-trip
+    through a port checkpoint into another model in place, bit for
+    bit."""
+    from repro_torch import models as tm
+    from repro_torch.configs import get_config
+    cfg = tm.reduced(get_config("qwen2_05b"))
+    assert cfg.dtype == "bfloat16"
+    src = tm.init_lm(cfg, torch.Generator().manual_seed(1), device="cpu")
+    dst = tm.init_lm(cfg, torch.Generator().manual_seed(2), device="cpu")
+    tckpt.save_checkpoint(str(tmp_path), 3, tm.lm_to_params(src))
+    tree, _, _ = tckpt.restore_checkpoint(str(tmp_path),
+                                          tm.lm_to_params(dst))
+    tm.lm_load_params(dst, tree)
+    for a, b in zip(src.parameters(), dst.parameters()):
+        assert a.dtype == b.dtype and torch.equal(a.view(torch.int16)
+                                                  if a.dtype == torch.bfloat16
+                                                  else a,
+                                                  b.view(torch.int16)
+                                                  if b.dtype == torch.bfloat16
+                                                  else b)

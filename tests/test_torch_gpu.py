@@ -965,3 +965,128 @@ def test_qwen2_full_width_on_card(cuda, full_precision, seeded_rng):
     margin = torch.minimum(*[m[..., 0] - m[..., 1] for m in margins])
     flips = text.argmax(-1) != dec.argmax(-1)
     assert bool((margin[flips] < bound).all())
+
+
+# ------------------------------------------------------- the LM training --
+from repro_torch import training as tt  # noqa: E402
+from repro_torch.checkpoint import (flatten_with_paths,  # noqa: E402
+                                    restore_checkpoint, save_checkpoint)
+
+TRAIN_LOSS_RTOL = 1e-5   # card vs CPU loss, relative
+TRAIN_GRAD_TOL = 1e-4    # card vs CPU gradients: * max(1, max|cpu leaf|)
+TRAIN_STEP_TOL = 5e-3    # parameters after one step (tests/test_training.py)
+TRAIN_FAMILIES = ["qwen2_05b", "qwen2_moe_a27b", "llama4_maverick",
+                  "jamba_v01_52b", "mamba2_27b", "whisper_large_v3",
+                  "pixtral_12b"]
+
+
+def _train_batch(cfg, B, S, rng):
+    toks, extra = lm_inputs(cfg, B, S, rng)
+    batch = {"tokens": torch.from_numpy(toks),
+             "labels": torch.from_numpy(rng.integers(
+                 0, cfg.vocab_size, (B, S)).astype(np.int32))}
+    if extra is not None:
+        batch["extra_embeds"] = torch.from_numpy(extra)
+    return batch
+
+
+def _to(batch, dev):
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def _loss_grads_both(cfg, dev, batch, remat=True):
+    """The same host-drawn weights on the CPU and the card: (models,
+    losses, gradient trees in the JAX layout)."""
+    cpu = tm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = tm.lm_from_params(cfg, tm.lm_to_params(cpu), device=dev)
+    losses, grads = [], []
+    for model in (cpu, card):
+        model.requires_grad_(True)
+        loss, _ = tt.make_loss_fn(cfg, remat=remat)(
+            model, _to(batch, model.device))
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append(tm.lm_grads(model))
+        model.zero_grad(set_to_none=True)
+    return (cpu, card), losses, grads
+
+
+def _grads_close(got, want):
+    want = dict(flatten_with_paths(want))
+    got = dict(flatten_with_paths(got))
+    assert list(got) == list(want)
+    for k, w in want.items():
+        assert _scaled_err(got[k], w) <= TRAIN_GRAD_TOL, k
+
+
+@pytest.mark.parametrize("arch", TRAIN_FAMILIES)
+def test_loss_and_grads_on_card_match_cpu(cuda, full_precision, arch,
+                                          seeded_rng):
+    """One reduced float32 arch of each family: the card's loss within
+    1e-5 relative of the CPU's, every gradient leaf within 1e-4 of
+    scale."""
+    cfg = tm.reduced(get_config(arch), dtype="float32")
+    _, losses, grads = _loss_grads_both(
+        cfg, cuda, _train_batch(cfg, 2, 12, seeded_rng))
+    assert abs(losses[1] - losses[0]) <= TRAIN_LOSS_RTOL * abs(losses[0])
+    _grads_close(grads[1], grads[0])
+
+
+def test_qwen2_train_step_on_card_matches_cpu(cuda, full_precision,
+                                              seeded_rng):
+    """qwen2-0.5b at its published widths, two layers, float32, B=2
+    S=64: loss and gradients as above (``remat=True``), then one AdamW
+    step (lr 1e-2, two microbatches) to parameters within 5e-3."""
+    cfg = dataclasses.replace(get_config("qwen2_05b"), dtype="float32",
+                              num_layers=2)
+    batch = _train_batch(cfg, 2, 64, seeded_rng)
+    models, losses, grads = _loss_grads_both(cfg, cuda, batch)
+    assert abs(losses[1] - losses[0]) <= TRAIN_LOSS_RTOL * abs(losses[0])
+    _grads_close(grads[1], grads[0])
+    opt = tt.AdamW(lr=1e-2)
+    after = []
+    for model in models:
+        step = tt.make_train_step(cfg, opt, remat=True, microbatches=2)
+        model, st, met = step(model, opt.init(tm.lm_to_params(model)),
+                              _to(batch, model.device))
+        assert np.isfinite(float(met["loss"])) and int(st.count) == 1
+        after.append(dict(flatten_with_paths(tm.lm_to_params(model))))
+    for k, w in after[0].items():
+        assert float((after[1][k].cpu() - w).abs().max()) <= TRAIN_STEP_TOL
+
+
+def test_compression_on_card_equals_cpu(cuda, seeded_rng):
+    """``topk_compress`` (error feedback over three steps) and
+    ``int8_roundtrip`` of the same gradients: the card's equal the
+    CPU's, bit for bit."""
+    g = {"w": torch.from_numpy(seeded_rng.normal(size=(300, 7)).astype(
+        np.float32)),
+         "b": [torch.from_numpy(np.round(seeded_rng.normal(size=999) * 8)
+                                .astype(np.float32)),
+               torch.from_numpy(seeded_rng.normal(size=5).astype(
+                   np.float32)).to(torch.bfloat16),
+               # a gradient-sized leaf: a quotient one rounding off
+               # flips an int8 value somewhere among 2M entries
+               torch.from_numpy(seeded_rng.normal(size=(1024, 2048))
+                                .astype(np.float32))]}
+    gc = {"w": g["w"].to(cuda), "b": [t.to(cuda) for t in g["b"]]}
+    e, ec = tt.init_error(g), tt.init_error(gc)
+    for k_frac in (0.01, 0.1, 0.3):
+        s, e = tt.topk_compress(g, e, k_frac)
+        sc, ec = tt.topk_compress(gc, ec, k_frac)
+        for (_, a), (_, b) in zip(flatten_with_paths((s, e)),
+                                  flatten_with_paths((sc, ec))):
+            assert torch.equal(b.cpu(), a)
+    for (_, a), (_, b) in zip(flatten_with_paths(tt.int8_roundtrip(g)),
+                              flatten_with_paths(tt.int8_roundtrip(gc))):
+        assert torch.equal(b.cpu(), a)
+
+
+def test_bf16_checkpoint_from_card_restores_bit_exact(cuda, tmp_path,
+                                                      seeded_rng):
+    w = torch.from_numpy(seeded_rng.integers(0, 1 << 16, (4, 33)).astype(
+        np.uint16).view(np.int16)).view(torch.bfloat16)
+    save_checkpoint(str(tmp_path), 1, {"w": w.to(cuda)})
+    got, _, _ = restore_checkpoint(str(tmp_path), {"w": 0})
+    assert got["w"].dtype == torch.bfloat16
+    assert torch.equal(got["w"].view(torch.int16), w.view(torch.int16))
