@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's analytics engines, its analytics server and
-its LM serving and training paths once on one NVIDIA H100.
+its LM serving, training and distribution paths once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -144,6 +144,18 @@ CUDA toolkit.  Phases:
    ``FailureInjector`` and resumed from its step-8 checkpoint must give
    losses 8-19 bit-equal to an uncrashed run's.  (e) The launcher
    ``repro_torch.launch.train`` for 4 steps at the same widths.
+11. LM distribution (``[dist]``), counts zeroed just before and read just
+   after (no kernel on this path).  (a) Each arch's parameter and AdamW
+   moment bytes a card under the sharding rules on the 16x16 production
+   mesh (shapes only).  (b) The launcher at ``[train]``'s shape for 4
+   steps under deterministic algorithms, plain and with ``--mesh 1x1``
+   (NCCL, a world of one; it leaves the process group on return): the
+   losses bit-equal.  (c) One step of each, plain and on a 1x1 NCCL mesh
+   (parameters, moments and batch as DTensors): host-clock ms, device ms
+   and operations (``torch.profiler``), the busy share.  (d) GPipe: 4
+   stand-in stages on the card of 6 ``qwen2-0.5b`` bf16 layers each, 8
+   microbatches of 1 x 1024 tokens, bit-equal to the 24 layers applied in
+   order to each microbatch, both timed.
 
 Phases 1-7 run with no tuned table (``REPRO_AUTOTUNE_CACHE`` points at a
 file that does not exist), so they launch the shipped shapes.
@@ -244,6 +256,16 @@ TRAIN_LOG_EVERY = 5
 TRAIN_PROFILE_STEPS = 2
 TRAIN_LAUNCH_STEPS = 4
 BF16_PEAK = 989.4e12                # H100 SXM, bf16 dense, spec sheet
+
+# the distribution phase (phase 11): the launcher's 1x1 mesh (NCCL) and
+# its plain path at [train]'s shape; a step of each on the host clock and
+# under the profiler; GPipe over stand-in stages of qwen2-0.5b's layers
+DIST_STEPS = 4
+DIST_TIMED_STEPS = 3
+DIST_PROFILE_STEPS = 2
+GPIPE_STAGES, GPIPE_LAYERS = 4, 6          # 4 stages of 6 layers: all 24
+GPIPE_M, GPIPE_MB, GPIPE_S = 8, 1, 1024    # 8 microbatches of 1 x 1024
+GPIPE_REPS = 3
 
 TIMING_REPS = 20
 TIMING_WARMUP = 3
@@ -1920,7 +1942,7 @@ def train_phase(dev, smi: str, cut=None, seq_len=TRAIN_S,
     """Phase 10.  ``cut``, ``seq_len``, ``files``, ``tokens_per_file``,
     ``short_seq``: a CPU rehearsal's smaller sizes (it skips the device
     measurements and the launcher); the card runs the published widths
-    and depth at the defaults."""
+    and depth at the defaults.  Returns the store it trained on."""
     import dataclasses
     import torch
     from repro_torch import models as tm
@@ -2116,6 +2138,256 @@ def train_phase(dev, smi: str, cut=None, seq_len=TRAIN_S,
         del out
         torch.cuda.empty_cache()
     log(f"[train] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return cc
+
+
+# ----------------------------------------------------------------------- #
+# LM distribution (phase 11): rules, the launcher's mesh, GPipe            #
+# ----------------------------------------------------------------------- #
+def rules_bytes(smi: str) -> None:
+    """(a) Each arch's parameter and AdamW-moment bytes a card under the
+    sharding rules on the 16x16 production mesh (shapes only: ``meta``
+    tensors and the rules' shard shapes)."""
+    import math
+    from repro_torch import models as tm
+    from repro_torch.checkpoint import flatten_with_paths
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.distributed import default_rules, param_shardings
+    from repro_torch.launch.mesh import make_production_mesh
+    mesh = make_production_mesh()
+    rules = default_rules(mesh)
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        params, axes = tm.lm_skeleton(cfg)
+        sh = dict(flatten_with_paths(param_shardings(axes, params, mesh,
+                                                     rules)))
+        full = local = moments = 0
+        for k, t in flatten_with_paths(params):
+            n = math.prod(sh[k].shard_shape(tuple(t.shape)))
+            full += t.numel() * t.element_size()
+            local += n * t.element_size()
+            moments += 2 * 4 * n                  # mu and nu, float32
+        log(f"[dist] {arch} ({cfg.dtype}) on a "
+            f"{'x'.join(map(str, mesh.shape.values()))} mesh: parameters "
+            f"{local} B a card of {full} B ({full / max(local, 1):.1f}x "
+            f"less), AdamW moments {moments} B a card, together "
+            f"{(local + moments) / 1e9:.3f} GB a card (rules, shapes only)")
+
+
+def mesh_step_numbers(cfg, dev, smi: str, batch) -> None:
+    """(c) One bf16 step of the plain path and of the same weights placed
+    on a 1x1 NCCL mesh, from one process group: host-clock ms (median of
+    DIST_TIMED_STEPS after a warm step), device ms and ops a step
+    (``torch.profiler``), the busy share."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from repro_torch import models as tm
+    from repro_torch import training as tt
+    from repro_torch.distributed import default_rules, distribute_lm
+    from repro_torch.launch.mesh import make_host_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        mesh = make_host_mesh(1, 1, device_type="cuda")
+        opt = tt.AdamW(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+        step_fn = tt.make_train_step(cfg, opt, remat=True,
+                                     microbatches=TRAIN_MICROBATCHES)
+        for label in ("plain", "mesh 1x1"):
+            model = tm.init_lm(cfg, torch.Generator().manual_seed(LM_SEED),
+                               device=dev)
+            if label != "plain":
+                distribute_lm(model, mesh, default_rules(mesh))
+            state = [opt.init(tm.lm_to_params(model))]
+            b = batch if label == "plain" else {
+                k: _replicated(v, mesh) for k, v in batch.items()}
+
+            def one_step():
+                _, state[0], met = step_fn(model, state[0], b)
+                return float(met["loss"])
+            one_step()
+            times = []
+            for _ in range(DIST_TIMED_STEPS):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                one_step()
+                times.append(time.perf_counter() - t0)
+            step_ms = statistics.median(times) * 1e3
+            dev_ms, ops = device_mean(one_step, dev, DIST_PROFILE_STEPS)
+            log(f"[dist]   {label}: step {step_ms:.5g} ms (host clock, "
+                f"median of {DIST_TIMED_STEPS}), device_ms {dev_ms:.5g} "
+                f"({ops:g} device ops a step, torch.profiler, mean of "
+                f"{DIST_PROFILE_STEPS}): busy {dev_ms / step_ms:.1%} of the "
+                f"step ({smi})")
+            del model, state
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def _replicated(t, mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
+
+
+def gpipe_check(cfg, dev, smi: str, stages=GPIPE_STAGES,
+                layers=GPIPE_LAYERS, M=GPIPE_M, mb=GPIPE_MB,
+                seq=GPIPE_S) -> None:
+    """(d) GPipe over ``stages`` stand-in stages on ``dev`` of ``layers``
+    layers each against the same layers applied in order to each
+    microbatch: bit-equal, times beside each other."""
+    import torch
+    from repro_torch import models as tm
+    from repro_torch.distributed.pipeline import gpipe, make_pp_mesh
+    from repro_torch.models.layers import stack_trees
+    model = tm.init_lm(cfg, torch.Generator().manual_seed(LM_SEED),
+                       device=dev)
+    check(cfg.num_layers == stages * layers, f"[dist] {cfg.num_layers} "
+          f"layers do not make {stages} stages of {layers}")
+    trees = [tm.param_tree(model)["layers"][i] for i in range(cfg.num_layers)]
+    with torch.no_grad():
+        stacked = stack_trees([stack_trees(trees[i * layers:(i + 1) * layers],
+                                           torch.stack)
+                               for i in range(stages)], torch.stack)
+
+        def stage_fn(p, x):
+            for j in range(layers):
+                x = tm.apply_layer(cfg, {k: _index(v, j) for k, v in
+                                         p.items()}, x)
+            return x
+        run = gpipe(stage_fn, make_pp_mesh(stages, (dev,) * stages), stages)
+        g = torch.Generator().manual_seed(LM_SEED)
+        tokens = torch.randint(0, cfg.vocab_size, (M, mb, seq), generator=g)
+        x = torch.nn.functional.embedding(tokens.to(dev), model.embed)
+
+        def sequential():
+            outs = []
+            for m in x:
+                for lp in model.layers:
+                    m = tm.apply_layer(cfg, lp, m)
+                outs.append(m)
+            return torch.stack(outs)
+        timed = {}
+        for label, fn in (("gpipe", lambda: run(stacked, x)),
+                          ("sequential", sequential)):
+            out = fn()
+            ts = []
+            for _ in range(GPIPE_REPS):
+                _sync(dev)
+                t0 = time.perf_counter()
+                fn()
+                _sync(dev)
+                ts.append(time.perf_counter() - t0)
+            timed[label] = (out, statistics.median(ts) * 1e3)
+    got, want = timed["gpipe"][0], timed["sequential"][0]
+    check(bool(torch.isfinite(got.float()).all()), "[dist] GPipe output not "
+          "finite")
+    check(torch.equal(got, want), f"[dist] GPipe differs from the layers in "
+          f"order by {max_abs_err(got.float(), want.float()):.3g}")
+    log(f"[dist] GPipe: {stages} stand-in stages on {dev} x {layers} "
+        f"{cfg.name} {cfg.dtype} layers, {M} microbatches of {mb} x {seq} "
+        f"tokens ({M + stages - 1} ticks): output {tuple(got.shape)} "
+        f"bit-equal to the {cfg.num_layers} layers in order; "
+        f"{timed['gpipe'][1]:.5g} ms against {timed['sequential'][1]:.5g} "
+        f"ms sequential (host clock, median of {GPIPE_REPS}, no_grad) "
+        f"({smi})")
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _index(tree, j):
+    if isinstance(tree, dict):
+        return {k: _index(v, j) for k, v in tree.items()}
+    return tree[j]
+
+
+def dist_phase(dev, smi: str, cc, cut=None, seq_len=TRAIN_S,
+               gpipe_seq=GPIPE_S) -> None:
+    """Phase 11.  ``cut``, ``seq_len``, ``gpipe_seq``: a CPU rehearsal's
+    smaller sizes (its launcher trains ``--reduced`` and it skips the
+    device measurements); the card runs the published widths and depth
+    at the defaults."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launcher
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    cut = cut or {}
+
+    # (a) the rules at production size
+    rules_bytes(smi)
+
+    # (b) the launcher a user calls, plain and on a 1x1 mesh (NCCL on the
+    # card), deterministic algorithms on: the losses bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dist_store.npz")
+        cc.save(path)
+        argv = ["--arch", TRAIN_ARCH, "--corpus", path, "--steps",
+                str(DIST_STEPS), "--global-batch", str(TRAIN_B),
+                "--seq-len", str(seq_len), "--microbatches",
+                str(TRAIN_MICROBATCHES), "--device", str(dev)]
+        if not cuda:
+            argv.append("--reduced")
+        runs = {}
+        torch.use_deterministic_algorithms(True)
+        try:
+            for label, extra in (("plain", []), ("mesh 1x1", ["--mesh",
+                                                              "1x1"])):
+                t0 = time.perf_counter()
+                out = launcher.main(argv + extra)
+                runs[label] = (out["history"], out["step_seconds"],
+                               time.perf_counter() - t0)
+                del out
+                if cuda:
+                    torch.cuda.empty_cache()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    check(not dist.is_initialized(), "[dist] the launcher left its process "
+          "group behind")
+    plain, mesh = runs["plain"][0], runs["mesh 1x1"][0]
+    check(all(np.isfinite(plain)), f"[dist] plain losses {plain}")
+    check(mesh == plain, f"[dist] the 1x1 mesh's losses {mesh} differ from "
+          f"the plain path's {plain}")
+    for label, (hist, secs, wall) in runs.items():
+        log(f"[dist] launcher {label}: {DIST_STEPS} steps, losses {hist}, "
+            f"steps 1-{DIST_STEPS - 1} "
+            f"{statistics.median(secs[1:]) * 1e3:.5g} ms median (host "
+            f"clock, deterministic algorithms), {wall:.1f} s with its "
+            f"set-up ({smi})")
+    log(f"[dist] the 1x1 {'NCCL' if cuda else 'gloo'} mesh's {DIST_STEPS} "
+        f"losses are bit-equal to the plain path's")
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), **cut)
+    if cuda:
+        # (c) a step's numbers, plain and on the mesh
+        pipe_x, pipe_y = _first_batch(cc, seq_len)
+        mesh_step_numbers(cfg, dev, smi, {
+            "tokens": torch.from_numpy(pipe_x).to(dev),
+            "labels": torch.from_numpy(pipe_y).to(dev)})
+        check(not dist.is_initialized(), "[dist] the process group is left")
+
+    # (d) GPipe over stand-in stages
+    gpipe_check(cfg, dev, smi, seq=gpipe_seq,
+                layers=cfg.num_layers // GPIPE_STAGES)
+    if cuda:
+        torch.cuda.empty_cache()
+    log(f"[dist] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def _first_batch(cc, seq_len):
+    from repro_torch.data import BatchPipeline
+    return BatchPipeline(cc, global_batch=TRAIN_B, seq_len=seq_len,
+                         prefetch=0).batch_at(0)
 
 
 def run(dev, n_corpora=N_CORPORA, n_files=N_FILES,
@@ -2250,8 +2522,12 @@ def main() -> int:
         f"its own)")
     log("[lm] masked_top_k " + json.dumps(topk))
     reset_launch_counts()
-    train_phase(dev, smi)
+    cc = train_phase(dev, smi)
     log(f"[train] launches {launch_counts()} (the training path has no "
+        f"kernel of its own)")
+    reset_launch_counts()
+    dist_phase(dev, smi, cc)
+    log(f"[dist] launches {launch_counts()} (the distribution layer has no "
         f"kernel of its own)")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

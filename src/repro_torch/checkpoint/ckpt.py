@@ -14,7 +14,8 @@ Guarantees, kept as the JAX package has them:
   * self-describing: the manifest lists every leaf key, so a template of
     the same structure restores it;
   * keep-last-k garbage collection;
-  * host-agnostic: tensors are copied to the host and saved unsharded.
+  * host-agnostic: tensors are copied to the host and saved unsharded
+    (a DTensor as its full tensor, written by rank 0 of its mesh).
 
 DESIGN — the leaf keys.  The JAX package names each leaf by
 ``jax.tree_util.keystr`` of its path in ``tree_flatten_with_path``.  The
@@ -41,6 +42,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 _SHARD_BUDGET = 1 << 30     # 1 GiB per npz shard
 
@@ -121,6 +124,9 @@ def _host_array(leaf) -> Tuple[np.ndarray, str]:
     and the dtype name the manifest records.  numpy has no bfloat16: a
     bfloat16 tensor becomes its raw 2-byte values (a ``V2`` array) named
     "bfloat16", as the JAX package records an ``ml_dtypes`` array."""
+    if isinstance(leaf, DTensor):
+        # topology-free: the full tensor (a collective over the mesh)
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -169,12 +175,29 @@ def _write_npz(path: str, arrays: Dict[str, np.ndarray],
 def save_checkpoint(directory: str, step: int, tree: Any,
                     extra: Optional[Dict] = None, keep: int = 3) -> str:
     """Write ``tree`` as step ``step`` under ``directory``, publish it as
-    ``LATEST`` and keep the last ``keep`` steps.  Returns the step dir."""
+    ``LATEST`` and keep the last ``keep`` steps.  Returns the step dir.
+
+    A tree holding DTensors is saved by every rank of their mesh together:
+    each leaf's ``full_tensor()`` is gathered on all of them, rank 0 writes
+    it, and every rank returns once the step is published."""
     flat, dtypes = [], {}
+    sharded = False
     for k, v in flatten_with_paths(tree):
+        sharded = sharded or isinstance(v, DTensor)
         arr, dtypes[k] = _host_array(v)
         flat.append((k, arr))
     step_dir = os.path.join(directory, f"step_{step:09d}")
+    if sharded and dist.is_initialized():
+        if dist.get_rank() == 0:
+            _write_step(directory, step_dir, step, flat, dtypes, extra, keep)
+        dist.barrier()
+        return step_dir
+    _write_step(directory, step_dir, step, flat, dtypes, extra, keep)
+    return step_dir
+
+
+def _write_step(directory: str, step_dir: str, step: int, flat, dtypes,
+                extra: Optional[Dict], keep: int) -> None:
     tmp_dir = step_dir + ".tmp"
     os.makedirs(tmp_dir, exist_ok=True)
 
@@ -211,7 +234,6 @@ def save_checkpoint(directory: str, step: int, tree: Any,
         f.write(f"{step}\n")
     os.replace(ptr_tmp, os.path.join(directory, "LATEST"))
     _gc(directory, keep)
-    return step_dir
 
 
 def latest_step(directory: str) -> Optional[int]:

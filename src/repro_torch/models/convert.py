@@ -16,7 +16,9 @@ transpose.
   JAX package restores into its own tree.
 * :func:`lm_axes` gives every parameter's logical axes keyed like that
   checkpoint's flattened keys (``jax.tree_util.keystr`` of the JAX
-  layout), the counterpart of the axes half of ``unbox``.
+  layout), the counterpart of the axes half of ``unbox``;
+  :func:`lm_skeleton` the shapes (``meta`` tensors) and axes tree of a
+  config's LM without building it.
 * Training: :func:`lm_load_params` copies a tree in the JAX layout into
   a model in place (resume); :func:`lm_grads` gives the parameters'
   ``.grad`` in the JAX layout (``jax.value_and_grad``'s tree);
@@ -35,8 +37,9 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
-from repro_torch.checkpoint import flatten_with_paths
+from repro_torch.checkpoint import flatten_with_paths, unflatten
 from repro_torch.kernels._common import resolve_device
 
 from .config import ModelConfig
@@ -128,9 +131,15 @@ def lm_from_params(cfg: ModelConfig, params: Dict, device=None) -> LM:
 @torch.no_grad()
 def lm_load_params(model: LM, params: Dict) -> LM:
     """Copy ``params`` (the JAX layout, numpy or tensor leaves, e.g. a
-    restored checkpoint's) into ``model``'s parameters in place."""
-    _fill(model.cfg, flatten_with_paths(param_tree(model)), params,
-          lambda p, t: p.copy_(t))
+    restored checkpoint's) into ``model``'s parameters in place; a
+    DTensor parameter takes its shard of the full leaf."""
+    def put(p, t):
+        if isinstance(p, DTensor):
+            # every rank holds the full tensor: place it as ``p`` is
+            t = distribute_tensor(t.to(p.device), p.device_mesh,
+                                  p.placements)
+        p.copy_(t)
+    _fill(model.cfg, flatten_with_paths(param_tree(model)), params, put)
     return model
 
 
@@ -180,6 +189,19 @@ def adamw_state_to_jax(state):
         return t.detach().cpu().numpy()
     return type(state)(count=conv(state.count), mu=tree_map(conv, state.mu),
                        nu=tree_map(conv, state.nu))
+
+
+def lm_skeleton(cfg: ModelConfig) -> Tuple[Dict, Dict]:
+    """``(params, axes)`` of ``cfg``'s LM in the JAX package's layout with
+    no memory behind them: ``meta`` tensors of the parameters' shapes and
+    dtypes, and the tree of their logical axes — what the sharding rules
+    read, at any size (the counterpart of ``eval_shape`` + ``unbox``)."""
+    with torch.device("meta"):
+        model = LM(cfg, init_tree(cfg, None))
+        params = lm_to_params(model)
+    flat_axes = lm_axes(model)
+    return params, unflatten(params, [flat_axes[k] for k, _ in
+                                      flatten_with_paths(params)])
 
 
 def lm_axes(model: LM) -> Dict[str, Tuple]:

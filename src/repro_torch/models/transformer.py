@@ -7,6 +7,7 @@ Entry points (the JAX package's, with the parameter tree replaced by the
 
   init_lm(cfg, generator, device)            -> LM
   apply_lm(cfg, model, tokens, ...)          -> (logits, aux)  (prefill)
+  apply_layer(cfg, layer, x, kind)           -> x  (one layer: a stage)
   init_cache(cfg, batch, max_len, device)    -> decode cache
   decode_step(cfg, model, cache, tokens)     -> (logits, cache)
   prefill_cross(cfg, model, cache, frames)   -> cache (whisper)
@@ -26,7 +27,10 @@ pass (``torch.utils.checkpoint``), ``"dots"`` keeps the weight matmuls'
 outputs and recomputes the rest; without gradients it changes nothing.
 ``unroll`` is an XLA compile control with no equivalent here: it is
 accepted and changes nothing.  ``constrain`` marks the JAX package's
-sharding points and is the identity (``models/partitioning.py``).
+sharding points: the identity without an activation policy, a
+redistribution of a DTensor with one (``models/partitioning.py``).  A
+model whose parameters are DTensors (``distributed.distribute_lm``) runs
+in ``mesh_scope``.
 
 Parameters are created with ``requires_grad=False``, for the serving
 path; the train step turns them on (``training/step.py``).  Whisper's
@@ -41,7 +45,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels._common import resolve_device
@@ -52,7 +58,7 @@ from .layers import (Boxed, _dtype, _qkv, apply_ffn, apply_rope, attn_out,
                      layer_norm, ones_init, rms_norm, rope_frequencies,
                      zeros_init)
 from .moe import apply_moe, init_moe
-from .partitioning import constrain
+from .partitioning import constrain, mesh_scope
 from .ssm import (apply_mamba, apply_mamba_decode, init_mamba,
                   init_mamba_state)
 
@@ -297,6 +303,30 @@ def _as_tokens(tokens, device) -> torch.Tensor:
     return torch.as_tensor(tokens, device=device).long()
 
 
+def _embed(model, tokens: torch.Tensor, dt) -> torch.Tensor:
+    """The token embeddings ``embed[tokens]`` in ``dt``, by ``F.embedding``
+    (the same rows, bit for bit).  On a mesh the table's vocabulary shards
+    are gathered over the mesh dims that split them first: the JAX
+    package's gather of a vocabulary-sharded table fails to partition,
+    and DTensor's masked strategy for it fails to reduce when the tokens
+    are split over another mesh dim.  The ``embed`` dim stays sharded."""
+    table = model["embed"]
+    if isinstance(table, DTensor) and any(
+            p.is_shard(0) for p in table.placements):
+        table = table.redistribute(table.device_mesh, [
+            Replicate() if p.is_shard(0) else p for p in table.placements])
+    return F.embedding(tokens, table.to(dt))
+
+
+def _on_mesh(fn: Callable) -> Callable:
+    """Run ``fn(cfg, model, ...)`` in ``mesh_scope(model)``."""
+    @functools.wraps(fn)
+    def wrapped(cfg, model, *args, **kwargs):
+        with mesh_scope(model):
+            return fn(cfg, model, *args, **kwargs)
+    return wrapped
+
+
 def _logits(cfg, model, x, dt):
     x = _apply_norm(cfg, model["final_norm"], x)
     head = model["embed"].T if cfg.tie_embeddings else model["lm_head"]
@@ -304,6 +334,7 @@ def _logits(cfg, model, x, dt):
     return constrain(logits, "logits")
 
 
+@_on_mesh
 def apply_lm(cfg: ModelConfig, model: LM, tokens,
              extra_embeds=None, remat: bool = True, unroll: bool = False
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -318,7 +349,7 @@ def apply_lm(cfg: ModelConfig, model: LM, tokens,
     dev = model.device
     wrap = _remat(remat, model)
     tokens = _as_tokens(tokens, dev)
-    x = model["embed"].to(dt)[tokens]
+    x = _embed(model, tokens, dt)
     enc_out = None
     if extra_embeds is not None:
         extra_embeds = torch.as_tensor(extra_embeds, device=dev).to(dt)
@@ -354,14 +385,31 @@ def apply_lm(cfg: ModelConfig, model: LM, tokens,
     return _logits(cfg, model, x, dt), aux
 
 
+def apply_layer(cfg: ModelConfig, lp, x: torch.Tensor, kind: str = "attn"
+                ) -> torch.Tensor:
+    """One decoder layer of ``apply_lm`` (mixer, then FFN or MoE) on
+    activations ``x`` [B, S, d] at positions 0..S-1, without its MoE aux
+    loss: a stage's unit of work in a pipeline.  ``lp`` is one layer's
+    parameters (``model.layers[i]`` or a dict of the same leaves)."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    chunk = ATTN_CHUNK if S > ATTN_CHUNK_THRESHOLD else 0
+    x = _mixer(cfg, lp, x, positions, _inv_freq(cfg, x.device), kind=kind,
+               chunk=chunk)
+    return _ffn_block(cfg, lp, x)[0]
+
+
 # ---------------------------------------------------------------- decode --
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> Dict:
     """Pre-allocated decode cache on ``device`` (the card unless the
     caller asks for the CPU): KV rings for attention layers, SSD state for
     mamba layers, cross-attention KV for encdec — the JAX package's layout,
-    ``[repeats, ...]`` per block position.  ``pos`` is a host int."""
-    dev = resolve_device(device)
+    ``[repeats, ...]`` per block position.  ``pos`` is a host int.
+    ``device="meta"`` builds the shapes only (what the sharding rules
+    read), at any size."""
+    dev = (torch.device("meta") if str(device) == "meta"
+           else resolve_device(device))
     dt = _dtype(cfg.dtype)
     hd = cfg.resolved_head_dim
     bs = cfg.block_size
@@ -385,6 +433,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
+@_on_mesh
 def decode_step(cfg: ModelConfig, model: LM, cache: Dict, tokens,
                 unroll: bool = False) -> Tuple[torch.Tensor, Dict]:
     """One decode step for the whole batch.  tokens: [B, 1] -> logits
@@ -393,7 +442,7 @@ def decode_step(cfg: ModelConfig, model: LM, cache: Dict, tokens,
     dt = _dtype(cfg.dtype)
     dev = model.device
     tokens = _as_tokens(tokens, dev)
-    x = model["embed"].to(dt)[tokens]                 # [B, 1, d]
+    x = _embed(model, tokens, dt)                     # [B, 1, d]
     B = x.shape[0]
     pos = int(cache["pos"])
     if cfg.family == "encdec":

@@ -11,7 +11,9 @@ The model is trained in place: ``train`` resumes a checkpoint into its
 parameters and returns it.  Checkpoints hold ``{"params": the JAX
 layout, "opt": AdamWState}`` in the JAX package's format, so either
 package resumes the other's (float32 configs: the JAX package restores
-a bfloat16 leaf as raw ``|V2`` bytes).
+a bfloat16 leaf as raw ``|V2`` bytes).  On a mesh (parameters that are
+DTensors) a checkpoint holds the full tensors, so a job resumes on any
+mesh.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import BatchPipeline
+from repro_torch.distributed.elastic import place_like
 from repro_torch.models.convert import (adamw_state_from_jax,
                                         lm_load_params, lm_to_params)
 from .optimizer import AdamW
@@ -78,9 +81,13 @@ def train(cfg, model, opt: AdamW, pipeline: BatchPipeline, *,
           watchdog: Optional[StragglerWatchdog] = None,
           injector: Optional[FailureInjector] = None,
           log_every: int = 10,
-          log: Callable[[str], None] = print) -> Dict[str, Any]:
+          log: Callable[[str], None] = print,
+          place_batch: Optional[Callable[[Dict], Dict]] = None
+          ) -> Dict[str, Any]:
     """Run (or resume) a training job on ``model``'s device.  Returns the
-    trained model (``params``), the optimizer state and the history."""
+    trained model (``params``), the optimizer state, the history and each
+    step's seconds.  ``place_batch`` maps a step's batch of this rank's
+    rows on the device to what the step takes (on a mesh: DTensors)."""
     step_fn = train_step or make_train_step(cfg, opt)
     dev = model.device
     params = lm_to_params(model)
@@ -93,12 +100,14 @@ def train(cfg, model, opt: AdamW, pipeline: BatchPipeline, *,
         if restored is not None:
             tree, ck_step, extra = restored
             lm_load_params(model, tree["params"])
-            opt_state = adamw_state_from_jax(tree["opt"], dev)
+            # on a mesh the moments go where the fresh state's DTensors are
+            opt_state = place_like(adamw_state_from_jax(tree["opt"], dev),
+                                   opt_state)
             start_step = ck_step
             log(f"[driver] resumed from checkpoint step {ck_step}")
     del params
 
-    history = []
+    history, seconds = [], []
     watchdog = watchdog or StragglerWatchdog()
     for step in range(start_step, steps):
         if injector is not None:
@@ -106,12 +115,15 @@ def train(cfg, model, opt: AdamW, pipeline: BatchPipeline, *,
         x, y = pipeline.batch_at(step)
         batch = {"tokens": torch.from_numpy(x).to(dev),
                  "labels": torch.from_numpy(y).to(dev)}
+        if place_batch is not None:
+            batch = place_batch(batch)
         t0 = time.perf_counter()
         model, opt_state, metrics = step_fn(model, opt_state, batch)
         loss = float(metrics["loss"])   # blocks; also the step boundary
         dt = time.perf_counter() - t0
         watchdog.observe(step, dt)
         history.append(loss)
+        seconds.append(dt)
         if step % log_every == 0:
             log(f"[driver] step {step} loss {loss:.4f} "
                 f"({dt*1e3:.0f} ms/step)")
@@ -122,4 +134,5 @@ def train(cfg, model, opt: AdamW, pipeline: BatchPipeline, *,
                                       "opt": opt_state},
                            extra={"pipeline_step": step + 1})
     return {"params": model, "opt_state": opt_state, "history": history,
-            "straggler_events": watchdog.events, "last_step": steps}
+            "step_seconds": seconds, "straggler_events": watchdog.events,
+            "last_step": steps}

@@ -53,8 +53,8 @@ def topk_compress(grads, error, k_frac: float = 0.01):
 
 
 def init_error(params):
-    return _map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device), params)
+    # ``zeros_like``: a DTensor leaf's error buffer is placed as it is
+    return _map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
 
 
 def topk_wire_bytes(params, k_frac: float) -> int:

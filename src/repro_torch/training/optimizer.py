@@ -73,9 +73,9 @@ class AdamW:
         dev = leaves[0].device if leaves else torch.device("cpu")
 
         def zeros():
+            # ``zeros_like``: a DTensor leaf gets moments placed as it is
             return unflatten(params, [
-                torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for p in leaves])
+                torch.zeros_like(p, dtype=torch.float32) for p in leaves])
         return AdamWState(count=torch.zeros((), dtype=torch.int32,
                                             device=dev),
                           mu=zeros(), nu=zeros())

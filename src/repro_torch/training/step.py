@@ -12,6 +12,10 @@ as in the JAX package, each microbatch's gradients (in the parameters'
 dtype) are summed into float32 zeros, then divided by M — so a bfloat16
 model's sum does not round at every microbatch, as ``.grad``'s own
 accumulation would — and the loss and metrics are averaged.
+A model whose parameters are DTensors (``distributed.distribute_lm``)
+takes the same step on its mesh, in ``mesh_scope``: gradients and
+moments are DTensors placed like their parameters, and the metrics come
+back as plain tensors.
 """
 
 from __future__ import annotations
@@ -19,11 +23,13 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint import flatten_with_paths, unflatten
 from repro_torch.models import apply_lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import layer_views, param_tree
+from repro_torch.models.partitioning import mesh_scope
 from .optimizer import AdamW, AdamWState
 
 Z_LOSS = 1e-4
@@ -35,12 +41,18 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean CE over valid tokens + z-loss.  logits f32 [B,S,V].
 
-    The gold logit is read with ``gather``.  The JAX package takes it by
-    a one-hot contraction, which keeps a vocabulary sharded over devices
-    local; on one device the sum of exact zeros and one value is the
-    gathered value, bit for bit, without a B*S*V float32 one-hot."""
+    The JAX package takes the gold logit by a one-hot contraction, which
+    keeps a vocabulary sharded over devices local.  So does the port on a
+    mesh (DTensor logits); on one device it reads it with ``gather``,
+    without a B*S*V float32 one-hot.  The sum of exact zeros and one
+    value is the gathered value, bit for bit."""
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        onehot = (labels.long()[..., None] == vocab).to(logits.dtype)
+        gold = torch.sum(logits * onehot, dim=-1)
+    else:
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = lse - gold
     z = torch.square(lse)
     if mask is None:
@@ -67,19 +79,40 @@ def make_loss_fn(cfg: ModelConfig, remat=True,
 
 def _split(batch: Dict, m: int):
     """The batch's ``m`` microbatches along the leading axis (the JAX
-    package's reshape to ``[m, B // m, ...]``)."""
+    package's reshape to ``[m, B // m, ...]``).  A DTensor batch split over
+    the mesh on its leading axis is split shard by shard: microbatch ``i``
+    is every rank's ``i``-th slice of its own rows, so no rows move
+    between ranks (on one rank, the same split)."""
     out = [{} for _ in range(m)]
     for k, v in batch.items():
         if v is None:
             continue
-        v = torch.as_tensor(v)
-        if v.shape[0] % m:
-            raise ValueError(f"batch of {v.shape[0]} does not split into "
-                             f"{m} microbatches")
-        for i, part in enumerate(v.reshape((m, v.shape[0] // m)
-                                           + tuple(v.shape[1:]))):
+        if isinstance(v, DTensor):
+            parts = _split_local(v, m)
+        else:
+            v = torch.as_tensor(v)
+            if v.shape[0] % m:
+                raise ValueError(f"batch of {v.shape[0]} does not split "
+                                 f"into {m} microbatches")
+            parts = v.reshape((m, v.shape[0] // m) + tuple(v.shape[1:]))
+        for i, part in enumerate(parts):
             out[i][k] = part
     return out
+
+
+def _split_local(v: DTensor, m: int):
+    if any(p.is_shard() and p.dim != 0 for p in v.placements) or any(
+            p.is_partial() for p in v.placements):
+        raise ValueError(f"a batch placed {v.placements} does not split "
+                         f"into microbatches shard by shard")
+    local = v.to_local()
+    if local.shape[0] % m:
+        raise ValueError(f"a shard of {local.shape[0]} rows does not split "
+                         f"into {m} microbatches")
+    return [DTensor.from_local(part, v.device_mesh, v.placements,
+                               run_check=False)
+            for part in local.reshape((m, local.shape[0] // m)
+                                      + tuple(local.shape[1:]))]
 
 
 def make_train_step(cfg: ModelConfig, opt: AdamW, remat=True,
@@ -87,6 +120,10 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, remat=True,
     loss_fn = make_loss_fn(cfg, remat=remat, unroll=unroll)
 
     def train_step(model, opt_state: AdamWState, batch: Dict):
+        with mesh_scope(model):
+            return _step(model, opt_state, batch)
+
+    def _step(model, opt_state: AdamWState, batch: Dict):
         model.requires_grad_(True)
         params = param_tree(model)
         leaves = [p for _, p in flatten_with_paths(params)]
@@ -125,11 +162,18 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, remat=True,
                            layer_views(cfg, opt_state.nu))
         _, state, opt_m = opt.update(unflatten(params, grads), state,
                                      params)
-        metrics = dict(metrics, loss=loss, **opt_m)
+        metrics = {k: _full(v) for k, v in
+                   dict(metrics, loss=loss, **opt_m).items()}
         return model, AdamWState(state.count, opt_state.mu,
                                  opt_state.nu), metrics
 
     return train_step
+
+
+def _full(v: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor: a DTensor's local value may be a
+    partial sum, so it is reduced over the mesh first."""
+    return v.full_tensor() if isinstance(v, DTensor) else v
 
 
 def _grad(p: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,387 @@
+"""The port's LM distribution layer on the CPU: DTensor placement by the
+sharding rules, the sharded train step, elastic resharding through a
+checkpoint, activation policies, gradient compression of DTensors,
+``launch.train --mesh`` (``repro_torch.distributed``,
+``models/partitioning.py``, ``launch/mesh.py``, ``launch/train.py``) on
+four gloo ranks, and GPipe (``distributed/pipeline.py``) over stand-in
+devices — against the JAX package.
+
+The JAX package's own sharded step fails on the installed jax (its
+embedding gather, ``src/repro/models/transformer.py:216``), so the port's
+sharded step is held to the JAX package's UNSHARDED step, which is what
+``tests/_multidevice_worker.py`` asserts ("sharded == single"), with its
+bounds: loss within 1e-4, parameters within 5e-3.  Elastic losses within
+1e-4 relative; the policy's logits within 1e-5 of scale; GPipe within
+1e-5 of the JAX package's ``gpipe`` (run in a 4-host-device subprocess)
+and bit-equal to its stages applied in order.
+
+The four ranks (``tests/_torch_dist_worker.py``) start once for the file,
+beside the four of the 2x2 launcher, and run while the JAX references are
+computed; a rendezvous file under the test's temporary directory and a
+free port keep parallel test workers apart.
+"""
+
+import json
+import os
+import socket
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro import models as jm
+from repro import training as jt
+from repro.data import BatchPipeline as JPipeline
+from repro.data import CompressedCorpus as JCorpus
+from repro.data import synthetic as jsynthetic
+from repro_torch import models as tm
+from repro_torch import training as tt
+from repro_torch.checkpoint import flatten_with_paths
+from repro_torch.configs import get_config
+from repro_torch.distributed import (MeshShape, NamedSharding,
+                                     default_rules, spec_for)
+from repro_torch.distributed.pipeline import gpipe, make_pp_mesh
+from repro_torch.launch import mesh as tmesh
+from repro_torch.launch import train as tlaunch
+from repro_torch.models import partitioning as tpart
+
+torch.set_num_threads(1)
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+WORLD = 4
+LOSS_TOL = 1e-4          # tests/_multidevice_worker.py:63
+PARAM_TOL = 5e-3         # tests/_multidevice_worker.py:67
+ELASTIC_RTOL = 1e-4
+POLICY_TOL = 1e-5
+GPIPE_TOL = 1e-5
+GLOBAL_BATCH, SEQ, LR, STEPS = 8, 16, 1e-2, 6
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Start the four gloo ranks of the scenarios and, beside them, the
+    four of the 2x2 launcher; the returned function waits for them and
+    gives each rank's results."""
+    out = tmp_path_factory.mktemp("ranks")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    worker = os.path.join(HERE, "_torch_dist_worker.py")
+    procs = [subprocess.Popen(
+        [sys.executable, worker, mode, str(r), str(WORLD), rendezvous,
+         str(out)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env)
+        for mode, rendezvous in (("scenarios", str(out / "rendezvous")),
+                                 ("launcher", str(_free_port())))
+        for r in range(WORLD)]
+    done = {}
+
+    def results():
+        if not done:
+            logs = [p.communicate(timeout=300)[0] for p in procs]
+            bad = [r for r, p in enumerate(procs) if p.returncode]
+            assert not bad, f"worker {bad[0]} failed:\n{logs[bad[0]][-6000:]}"
+            done["ranks"] = [
+                dict(json.loads((out / f"rank{r}.json").read_text()),
+                     **json.loads((out / f"launcher{r}.json").read_text()))
+                for r in range(WORLD)]
+            done["params"] = dict(np.load(out / "step_params.npz"))
+        return done
+    yield results
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def _tiny():
+    over = dict(dtype="float32", num_layers=2, d_model=32, num_heads=4,
+                num_kv_heads=2, head_dim=8, d_ff=64, vocab_size=400)
+    return (jm.reduced(jconfigs.get_config("yi_9b"), **over),
+            tm.reduced(get_config("yi_9b"), **over))
+
+
+@pytest.fixture(scope="module")
+def jax_run(ranks):
+    """The JAX package's unsharded steps 0-5 from the port's seed-0
+    weights on corpus D's batches: (losses, parameters after step 0)."""
+    jcfg, tcfg = _tiny()
+    init = tm.lm_to_params(tm.init_lm(tcfg, torch.Generator().manual_seed(0),
+                                      device="cpu"))
+    params = jax.tree.map(lambda t: jnp.asarray(t.numpy()), init)
+    cc = JCorpus.build(jsynthetic.make_table2_corpus("D"), vocab_size=400)
+    pl = JPipeline(cc, global_batch=GLOBAL_BATCH, seq_len=SEQ, seed=0,
+                   prefetch=0)
+    opt = jt.AdamW(lr=LR)
+    step = jax.jit(jt.make_train_step(jcfg, opt))
+    state = opt.init(params)
+    losses, first = [], None
+    for s in range(STEPS):
+        x, y = pl.batch_at(s)
+        params, state, m = step(params, state, {"tokens": jnp.asarray(x),
+                                                "labels": jnp.asarray(y)})
+        losses.append(float(m["loss"]))
+        if first is None:
+            first = {k: np.asarray(v) for k, v in flatten_with_paths(
+                jax.tree.map(np.asarray, params))}
+    return losses, first
+
+
+def test_sharded_step_matches_the_jax_unsharded_step(ranks, jax_run):
+    """One AdamW step on a 2x2 mesh (parameters, moments and batch placed
+    by the rules) against the JAX package's step on one device."""
+    res = ranks()
+    losses, want = jax_run
+    for r in res["ranks"]:
+        assert abs(r["step_loss"] - losses[0]) < LOSS_TOL, (r["step_loss"],
+                                                            losses[0])
+    got = res["params"]
+    assert set(got) == set(want)
+    d = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+    assert d < PARAM_TOL, d
+
+
+def test_elastic_resume_matches_the_continuous_run_and_jax(ranks, jax_run):
+    """Steps 0-5 on 4x1 == steps 0-2 on 4x1, a checkpoint, steps 3-5 on
+    2x2; both == the JAX package's unsharded steps."""
+    losses, _ = jax_run
+    for r in ranks()["ranks"]:
+        np.testing.assert_allclose(r["elastic_resumed"],
+                                   r["elastic_continuous"],
+                                   rtol=ELASTIC_RTOL)
+        np.testing.assert_allclose(r["elastic_continuous"], losses,
+                                   rtol=ELASTIC_RTOL)
+        np.testing.assert_allclose(r["elastic_resumed"], losses,
+                                   rtol=ELASTIC_RTOL)
+
+
+def _placements(spec_axes, shape, mesh_shape):
+    mesh = MeshShape(mesh_shape, ("data", "model"))
+    return str(NamedSharding(mesh, spec_for(
+        spec_axes, shape, mesh, default_rules(mesh))).placements)
+
+
+def test_to_local_is_the_rules_slice(ranks):
+    """Every parameter's local shard equals the rules' slice of the full
+    tensor at the rank's coordinate; the moments are placed like their
+    parameters (stacked: a leading "layers" dim), also after the
+    elastic reshard."""
+    _, tcfg = _tiny()
+    wq = ("layers", "embed", "heads", "head_dim")
+    embed = ("vocab", "embed")
+    for r in ranks()["ranks"]:
+        assert r["to_local_err"] == 0.0
+        assert r["to_local_sharded"] > 0
+        assert r["moment_placements"] == _placements(
+            wq, (2, 32, 4, 8), (2, 2))
+        assert r["elastic_moment_placements"] == _placements(
+            embed, (400, 32), (2, 2))
+
+
+def test_activation_policy_redistributes_dtensors(ranks):
+    """``act_btd`` on ``data`` and ``logits`` on (``data``, -, ``model``):
+    every ``constrain`` call (seen through a spy) leaves its activation on
+    the policy's placements, some of them changed by it, and the logits
+    stay within 1e-5 of scale of the run without a policy."""
+    want = {"act_btd": "(Shard(dim=0), Replicate())",
+            "logits": "(Shard(dim=0), Shard(dim=2))"}
+    for r in ranks()["ranks"]:
+        assert r["policy_err"] <= POLICY_TOL
+        calls = r["policy_constrained"]
+        assert set(want) <= {k for k, _, _ in calls}
+        # a kind the policy names ends on its placements; another
+        # ("attn_q") passes through
+        assert all(out == want.get(k, before) for k, before, out in calls)
+        assert any(before != out for k, before, out in calls
+                   if k == "act_btd")
+        assert r["policy_logits_placements"] == want["logits"]
+
+
+def test_gradient_compression_of_dtensors(ranks):
+    """``int8_roundtrip`` and ``topk_compress`` (its float64 quotient, its
+    error buffer placed like the gradient) of DTensors equal the same
+    transforms of the full tensors."""
+    for r in ranks()["ranks"]:
+        assert r["compress_equal"] == [True, True]
+
+
+def test_launcher_mesh_2x2_matches_1x1(ranks):
+    """``launch.train --device cpu --reduced --mesh 2x2`` on four ranks
+    started as torchrun starts them == ``--mesh 1x1`` (a world of one),
+    losses within 1e-4 relative; the launcher leaves the group."""
+    one = tlaunch.main(["--device", "cpu", "--reduced", "--steps", "3",
+                        "--global-batch", "4", "--seq-len", "16",
+                        "--mesh", "1x1"])
+    assert not torch.distributed.is_initialized()
+    for r in ranks()["ranks"]:
+        np.testing.assert_allclose(r["launcher"], one["history"],
+                                   rtol=ELASTIC_RTOL)
+        assert not r["launcher_initialized_after"]
+
+
+@pytest.mark.parametrize("arch, family", [("qwen2-moe-a2.7b", "moe"),
+                                          ("jamba-v0.1-52b", "hybrid")])
+def test_launcher_names_what_dtensor_cannot_shard(arch, family):
+    """The MoE dispatch's ``searchsorted`` has no DTensor sharding
+    strategy: on a mesh the launcher raises, naming the family and the
+    op (dense, encoder-decoder, VLM and SSM archs train)."""
+    with pytest.raises(NotImplementedError,
+                       match=rf"({family} family).*searchsorted"):
+        tlaunch.main(["--device", "cpu", "--reduced", "--arch", arch,
+                      "--steps", "1", "--global-batch", "2", "--seq-len",
+                      "8", "--mesh", "1x1"])
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.fixture
+def world_of_one():
+    """A gloo process group of one rank and its 1x1 mesh."""
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{_free_port()}", world_size=1,
+        rank=0)
+    try:
+        yield tmesh.make_host_mesh(1, 1, device_type="cpu")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_one_rank_mesh_step_is_the_plain_step(world_of_one):
+    """On a 1x1 mesh every rule replicates, so a step (two microbatches)
+    equals the plain step bit for bit: the loss, the parameters and the
+    stacked AdamW moments, which the optimizer writes through per-layer
+    views of DTensors."""
+    from repro_torch.distributed import distribute_lm
+    from torch.distributed.tensor import DTensor
+    _, cfg = _tiny()
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, 400, (4, 8)))
+             for k in ("tokens", "labels")}
+    opt = tt.AdamW(lr=LR)
+    out = []
+    for mesh in (None, world_of_one):
+        model = tm.init_lm(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+        b = batch
+        if mesh is not None:
+            distribute_lm(model, mesh)
+            b = {k: DTensor.from_local(v, mesh, NamedSharding(
+                mesh, ()).placements) for k, v in batch.items()}
+        step = tt.make_train_step(cfg, opt, microbatches=2)
+        model, state, met = step(model, opt.init(tm.lm_to_params(model)), b)
+        out.append((float(met["loss"]), _full_leaves(tm.lm_to_params(model)),
+                    _full_leaves(state.mu), _full_leaves(state.nu)))
+    (l0, *trees0), (l1, *trees1) = out
+    assert l1 == l0
+    for t0, t1 in zip(trees0, trees1):
+        assert all(torch.equal(a, b) for a, b in zip(t0, t1))
+    assert any(bool(v.abs().sum() > 0) for v in trees1[1])
+
+
+def _full_leaves(tree):
+    from torch.distributed.tensor import DTensor
+    return [v.full_tensor() if isinstance(v, DTensor) else v
+            for _, v in flatten_with_paths(tree)]
+
+
+def test_mesh_of_the_wrong_size_raises(ranks):
+    """A 3x1 host mesh in a world of 4 raises, as the JAX ``assert`` does;
+    so does a host mesh with no process group."""
+    for r in ranks()["ranks"]:
+        assert "needs 3 ranks" in r["mesh_3x1_error"]
+    with pytest.raises(RuntimeError, match="process group"):
+        tmesh.make_host_mesh(1, 1)
+
+
+def test_policy_on_a_plain_tensor_raises():
+    with tpart.activation_policy({"act_btd": ("data", None, None)}):
+        with pytest.raises(TypeError, match="plain tensor"):
+            tpart.constrain(torch.ones(2, 3, 4), "act_btd")
+    with pytest.raises(TypeError, match="PartitionSpec"):
+        tpart.set_policy({"act_btd": "data"})
+    assert tpart.get_policy() == {}
+
+
+# ------------------------------------------------------------------ GPipe --
+_JAX_GPIPE = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+sys.path.insert(0, sys.argv[1])
+import jax, jax.numpy as jnp, numpy as np
+from repro.distributed.pipeline import gpipe, make_pp_mesh
+d = np.load(sys.argv[2])
+out = gpipe(lambda w, x: jnp.tanh(x @ w), make_pp_mesh(4), 4)(
+    jnp.asarray(d["ws"]), jnp.asarray(d["mb"]))
+np.save(sys.argv[3], np.asarray(out))
+"""
+
+
+def _gpipe_inputs():
+    rng = np.random.default_rng(0)
+    ws = rng.normal(size=(4, 16, 16)).astype(np.float32) * 0.5
+    mb = rng.normal(size=(6, 3, 16)).astype(np.float32)
+    return ws, mb
+
+
+def test_gpipe_matches_jax_and_the_stages_in_order(tmp_path):
+    """``_multidevice_worker.py``'s pipeline (4 stages of tanh(x @ w), 6
+    microbatches) over ``("cpu",) * 4``: within 1e-5 of the JAX package's
+    ``gpipe`` on 4 host devices, and bit-equal to the stages applied in
+    order to each microbatch."""
+    ws, mb = _gpipe_inputs()
+    np.savez(tmp_path / "in.npz", ws=ws, mb=mb)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _JAX_GPIPE,
+         os.path.join(HERE, "..", "src"), str(tmp_path / "in.npz"),
+         str(tmp_path / "out.npy")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    run = gpipe(lambda w, x: torch.tanh(x @ w), make_pp_mesh(
+        4, ("cpu",) * 4), 4)
+    got = run(torch.from_numpy(ws), torch.from_numpy(mb))
+    seq = []
+    for m in torch.from_numpy(mb):
+        for w in torch.from_numpy(ws):
+            m = torch.tanh(m @ w)
+        seq.append(m)
+    assert torch.equal(got, torch.stack(seq))
+    log = proc.communicate(timeout=120)[0]
+    assert proc.returncode == 0, log
+    want = np.load(tmp_path / "out.npy")
+    np.testing.assert_allclose(got.numpy(), want, atol=GPIPE_TOL, rtol=0)
+
+
+def test_gpipe_runs_the_classic_schedule():
+    """At tick t stage i runs microbatch t - i: (M + S - 1) ticks, each
+    stage's slice on its own device of the list (devices may repeat)."""
+    S, M = 3, 5
+    calls = []
+
+    def stage_fn(p, x):
+        calls.append((int(p["id"]), int(x[0])))
+        return x + 1
+    params = {"id": torch.arange(S)}
+    mbs = torch.arange(M)[:, None] * 100
+    out = gpipe(stage_fn, ("cpu",) * S, S)(params, mbs)
+    assert torch.equal(out, mbs + S)
+    want = [(i, 100 * (t - i) + i) for t in range(M + S - 1)
+            for i in reversed(range(S)) if 0 <= t - i < M]
+    assert calls == want
+
+
+def test_make_pp_mesh_raises_with_too_few_devices(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="4-stage pipeline needs 4"):
+        make_pp_mesh(4)
+    with pytest.raises(RuntimeError, match="needs 4"):
+        make_pp_mesh(4, ("cpu",) * 3)
+    assert make_pp_mesh(2, ("cpu",) * 4) == [torch.device("cpu")] * 2
+    with pytest.raises(ValueError, match="3 stages need 3"):
+        gpipe(lambda p, x: x, ("cpu",) * 2, 3)

@@ -128,11 +128,12 @@ def test_partitioning_without_policy_is_identity():
     assert jpart.get_policy() == {} and tpart.get_policy() == {}
     with tpart.activation_policy({}):
         assert tpart.constrain(x, "logits") is x
-    for call in (lambda: tpart.set_policy({"act_btd": ("data",)}),
-                 lambda: tpart.activation_policy(
-                     {"logits": ("data",)}).__enter__()):
-        with pytest.raises(NotImplementedError, match="sharding"):
-            call()
+    # with a policy for its kind installed, a plain tensor has no mesh to
+    # be placed on: it raises (kinds without a policy pass through)
+    with tpart.activation_policy({"logits": ("data",)}):
+        assert tpart.constrain(x, "act_btd") is x
+        with pytest.raises(TypeError, match="plain tensor"):
+            tpart.constrain(x, "logits")
     assert tpart.get_policy() == {}
 
 

@@ -669,8 +669,10 @@ def test_launcher_needs_a_card_and_one_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tlaunch.main(["--reduced", "--steps", "1"])
-    for argv in (["--mesh", "2x1"], ["--coordinator", "localhost:1234"]):
-        with pytest.raises(NotImplementedError, match="sharding layer"):
+    # a 2x1 mesh in a world of one rank; a coordinator without a mesh
+    for argv, match in ((["--mesh", "2x1"], "needs 2 ranks"),
+                        (["--coordinator", "localhost:1234"], "need --mesh")):
+        with pytest.raises(ValueError, match=match):
             tlaunch.main(["--device", "cpu", "--reduced", "--steps", "1"]
                          + argv)
 
