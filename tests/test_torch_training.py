@@ -120,7 +120,9 @@ def test_adamw_matches_jax(dtype, schedule, seeded_rng):
     td = getattr(torch, dtype)
     p0 = _opt_tree(seeded_rng)
     jp = jax.tree.map(lambda a: jnp.asarray(a).astype(jd), p0)
-    tp = jax.tree.map(lambda a: torch.from_numpy(a).to(td), p0)
+    # torch's own copy: the update writes ``tp`` in place while the
+    # jitted JAX update may still be reading ``jp``, which can alias p0
+    tp = jax.tree.map(lambda a: torch.from_numpy(a.copy()).to(td), p0)
     jstate, tstate = jopt.init(jp), topt.init(tp)
     assert tstate.count.dtype == torch.int32
     update = jax.jit(jopt.update)
