@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's analytics engines, its analytics server and
-its LM serving, training and distribution paths once on one NVIDIA H100.
+"""Drive the PyTorch port's analytics engines, its analytics server, its
+LM serving, training and distribution paths and its dry run once on one
+NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -155,7 +156,23 @@ CUDA toolkit.  Phases:
    and operations (``torch.profiler``), the busy share.  (d) GPipe: 4
    stand-in stages on the card of 6 ``qwen2-0.5b`` bf16 layers each, 8
    microbatches of 1 x 1024 tokens, bit-equal to the 24 layers applied in
-   order to each microbatch, both timed.
+   order to each microbatch, both timed.  (e) ``qwen2-moe-a2.7b`` at its
+   published widths (d_model 2048, 60 experts top-4, expert d_ff 1408,
+   shared 5632, vocab 151,936), its 24 layers cut to 2 (the launcher's
+   ``--num-layers``), bf16, B=1 x 1024: the launcher for 3 steps plain
+   and on a 1x1 NCCL mesh under deterministic algorithms, the losses
+   bit-equal (the routed experts through ``local_map``), then a step of
+   each, host and device ms, as in (c).
+12. Dry run (``[dryrun]``), counts zeroed just before and read just
+   after: ``launch/dryrun.run_cell("qwen2-0.5b", "train_4k", "single")``
+   at full width on a 256-rank fake process group (meta tensors, the
+   host's work only): status, per-rank GiB, GFLOP, collective MB, the
+   seconds, and the cell's roofline terms at the H100 constants.
+13. Roofline (``[roofline]``), counts zeroed just before and read just
+   after: one bf16 step of ``[train]``'s model and batch under the
+   per-rank op counter (``utils/hlo_analysis.py``): FLOPs, bytes, the
+   three terms at the H100 constants (``launch/roofline.py``), the
+   dominant one, and the bound beside ``[train]``'s measured step.
 
 Phases 1-7 run with no tuned table (``REPRO_AUTOTUNE_CACHE`` points at a
 file that does not exist), so they launch the shipped shapes.
@@ -266,6 +283,15 @@ DIST_PROFILE_STEPS = 2
 GPIPE_STAGES, GPIPE_LAYERS = 4, 6          # 4 stages of 6 layers: all 24
 GPIPE_M, GPIPE_MB, GPIPE_S = 8, 1, 1024    # 8 microbatches of 1 x 1024
 GPIPE_REPS = 3
+# (e) a MoE arch at its published widths with its depth cut, through the
+# launcher plain and on a 1x1 mesh (NCCL), under deterministic algorithms
+DIST_MOE_ARCH, DIST_MOE_LAYERS = "qwen2-moe-a2.7b", 2
+DIST_MOE_B, DIST_MOE_S, DIST_MOE_STEPS = 1, 1024, 3
+
+# the dry-run phase (phase 12): one full-width cell on a 256-rank fake
+# process group (meta tensors on the host; no device work)
+DRYRUN_ARCH, DRYRUN_SHAPE, DRYRUN_MESH, DRYRUN_RANKS = (
+    "qwen2-0.5b", "train_4k", "single", 256)
 
 TIMING_REPS = 20
 TIMING_WARMUP = 3
@@ -1942,7 +1968,8 @@ def train_phase(dev, smi: str, cut=None, seq_len=TRAIN_S,
     """Phase 10.  ``cut``, ``seq_len``, ``files``, ``tokens_per_file``,
     ``short_seq``: a CPU rehearsal's smaller sizes (it skips the device
     measurements and the launcher); the card runs the published widths
-    and depth at the defaults.  Returns the store it trained on."""
+    and depth at the defaults.  Returns the store it trained on and the
+    step's host-clock ms (None on the CPU)."""
     import dataclasses
     import torch
     from repro_torch import models as tm
@@ -2138,7 +2165,7 @@ def train_phase(dev, smi: str, cut=None, seq_len=TRAIN_S,
         del out
         torch.cuda.empty_cache()
     log(f"[train] phase done in {time.perf_counter() - t_phase:.1f} s")
-    return cc
+    return cc, (step_ms if cuda else None)
 
 
 # ----------------------------------------------------------------------- #
@@ -2174,7 +2201,8 @@ def rules_bytes(smi: str) -> None:
             f"{(local + moments) / 1e9:.3f} GB a card (rules, shapes only)")
 
 
-def mesh_step_numbers(cfg, dev, smi: str, batch) -> None:
+def mesh_step_numbers(cfg, dev, smi: str, batch,
+                      microbatches=TRAIN_MICROBATCHES) -> None:
     """(c) One bf16 step of the plain path and of the same weights placed
     on a 1x1 NCCL mesh, from one process group: host-clock ms (median of
     DIST_TIMED_STEPS after a warm step), device ms and ops a step
@@ -2195,7 +2223,7 @@ def mesh_step_numbers(cfg, dev, smi: str, batch) -> None:
         mesh = make_host_mesh(1, 1, device_type="cuda")
         opt = tt.AdamW(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
         step_fn = tt.make_train_step(cfg, opt, remat=True,
-                                     microbatches=TRAIN_MICROBATCHES)
+                                     microbatches=microbatches)
         for label in ("plain", "mesh 1x1"):
             model = tm.init_lm(cfg, torch.Generator().manual_seed(LM_SEED),
                                device=dev)
@@ -2217,8 +2245,9 @@ def mesh_step_numbers(cfg, dev, smi: str, batch) -> None:
                 times.append(time.perf_counter() - t0)
             step_ms = statistics.median(times) * 1e3
             dev_ms, ops = device_mean(one_step, dev, DIST_PROFILE_STEPS)
-            log(f"[dist]   {label}: step {step_ms:.5g} ms (host clock, "
-                f"median of {DIST_TIMED_STEPS}), device_ms {dev_ms:.5g} "
+            log(f"[dist]   {cfg.name} {label}: step {step_ms:.5g} ms "
+                f"(host clock, median of {DIST_TIMED_STEPS}), device_ms "
+                f"{dev_ms:.5g} "
                 f"({ops:g} device ops a step, torch.profiler, mean of "
                 f"{DIST_PROFILE_STEPS}): busy {dev_ms / step_ms:.1%} of the "
                 f"step ({smi})")
@@ -2310,7 +2339,7 @@ def _index(tree, j):
 
 
 def dist_phase(dev, smi: str, cc, cut=None, seq_len=TRAIN_S,
-               gpipe_seq=GPIPE_S) -> None:
+               gpipe_seq=GPIPE_S, moe_seq=DIST_MOE_S) -> None:
     """Phase 11.  ``cut``, ``seq_len``, ``gpipe_seq``: a CPU rehearsal's
     smaller sizes (its launcher trains ``--reduced`` and it skips the
     device measurements); the card runs the published widths and depth
@@ -2381,13 +2410,186 @@ def dist_phase(dev, smi: str, cc, cut=None, seq_len=TRAIN_S,
                 layers=cfg.num_layers // GPIPE_STAGES)
     if cuda:
         torch.cuda.empty_cache()
+
+    # (e) the MoE dispatch on a mesh
+    moe_check(dev, smi, cc, seq_len=moe_seq)
     log(f"[dist] phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
-def _first_batch(cc, seq_len):
+def moe_check(dev, smi: str, cc, seq_len=DIST_MOE_S) -> None:
+    """(e) ``qwen2-moe-a2.7b`` at its published widths, its depth cut to
+    DIST_MOE_LAYERS (the launcher's ``--num-layers``), through the
+    launcher for DIST_MOE_STEPS steps plain and on a 1x1 mesh under
+    deterministic algorithms: the losses bit-equal (the routed experts
+    run through ``local_map`` on the mesh).  Then a step of each, host
+    and device ms (:func:`mesh_step_numbers`).  On the CPU it trains the
+    reduced config and skips the device numbers."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launcher
+    cuda = dev.type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "moe_store.npz")
+        cc.save(path)
+        argv = ["--arch", DIST_MOE_ARCH, "--num-layers",
+                str(DIST_MOE_LAYERS), "--corpus", path, "--steps",
+                str(DIST_MOE_STEPS), "--global-batch", str(DIST_MOE_B),
+                "--seq-len", str(seq_len), "--device", str(dev)]
+        if not cuda:
+            argv.append("--reduced")
+        runs = {}
+        torch.use_deterministic_algorithms(True)
+        try:
+            for label, extra in (("plain", []), ("mesh 1x1", ["--mesh",
+                                                              "1x1"])):
+                out = launcher.main(argv + extra)
+                runs[label] = (out["history"], out["step_seconds"])
+                del out
+                if cuda:
+                    torch.cuda.empty_cache()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    check(not dist.is_initialized(), "[dist] the MoE launcher left its "
+          "process group behind")
+    plain, mesh = runs["plain"][0], runs["mesh 1x1"][0]
+    check(all(np.isfinite(plain)), f"[dist] MoE plain losses {plain}")
+    check(mesh == plain, f"[dist] the MoE 1x1 mesh's losses {mesh} differ "
+          f"from the plain path's {plain}")
+    full = get_config(DIST_MOE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=DIST_MOE_LAYERS)
+    what = (f"at its published widths (d_model {cfg.d_model}, "
+            f"{cfg.moe_num_experts} experts top-{cfg.moe_top_k}, expert "
+            f"d_ff {cfg.moe_d_ff}, shared {cfg.moe_shared_d_ff}, vocab "
+            f"{cfg.vocab_size}), num_layers cut from {full.num_layers} to "
+            f"{DIST_MOE_LAYERS} (--num-layers), {cfg.param_count()} "
+            f"parameters, {cfg.dtype}" if cuda else
+            "reduced, float32 (CPU rehearsal)")
+    log(f"[dist] {DIST_MOE_ARCH} {what}, B={DIST_MOE_B} x {seq_len}: the "
+        f"1x1 {'NCCL' if cuda else 'gloo'} mesh's {DIST_MOE_STEPS} losses "
+        f"{mesh} are bit-equal to the plain path's ({smi})")
+    for label, (hist, secs) in runs.items():
+        log(f"[dist]   {DIST_MOE_ARCH} launcher {label}: steps "
+            f"1-{DIST_MOE_STEPS - 1} {statistics.median(secs[1:]) * 1e3:.5g}"
+            f" ms median (host clock, deterministic algorithms) ({smi})")
+    if cuda:
+        x, y = _first_batch(cc, seq_len, DIST_MOE_B)
+        mesh_step_numbers(cfg, dev, smi, {
+            "tokens": torch.from_numpy(x).to(dev),
+            "labels": torch.from_numpy(y).to(dev)}, microbatches=1)
+        check(not dist.is_initialized(), "[dist] the process group is left")
+        torch.cuda.empty_cache()
+
+
+def _first_batch(cc, seq_len, batch=TRAIN_B):
     from repro_torch.data import BatchPipeline
-    return BatchPipeline(cc, global_batch=TRAIN_B, seq_len=seq_len,
+    return BatchPipeline(cc, global_batch=batch, seq_len=seq_len,
                          prefetch=0).batch_at(0)
+
+
+# ----------------------------------------------------------------------- #
+# The dry run (phase 12) and the roofline of a train step (phase 13)       #
+# ----------------------------------------------------------------------- #
+def dryrun_phase(smi: str, cut=None) -> None:
+    """Phase 12: ``run_cell`` of DRYRUN_ARCH/DRYRUN_SHAPE/DRYRUN_MESH at
+    full width on a DRYRUN_RANKS-rank fake process group (meta tensors:
+    the host's work only), and the cell's roofline terms at the H100
+    constants.  ``cut``: a CPU rehearsal's smaller config."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, roofline
+    cfg = dataclasses.replace(get_config(DRYRUN_ARCH), **(cut or {}))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with dryrun.fake_world(DRYRUN_RANKS):
+            rec = dryrun.run_cell(DRYRUN_ARCH, DRYRUN_SHAPE, DRYRUN_MESH,
+                                  out_dir=tmp, force=True, cfg=cfg)
+    secs = time.perf_counter() - t0
+    check(rec["status"] == "ok", f"[dryrun] {DRYRUN_ARCH} {DRYRUN_SHAPE} "
+          f"{DRYRUN_MESH}: {rec.get('error')}\n{rec.get('trace')}")
+    a = roofline.analyze(rec)
+    log(f"[dryrun] {DRYRUN_ARCH} ({cfg.num_layers} layers) {DRYRUN_SHAPE} "
+        f"{DRYRUN_MESH} on {rec['devices']} fake ranks (torch "
+        f"{torch.__version__}): status {rec['status']}, "
+        f"{rec['memory']['argument_bytes'] / 2**30:.4f} GiB/dev "
+        f"(arguments, the rules' shards), "
+        f"{rec['cost']['flops_per_device'] / 1e9:.1f} GFLOP/dev, "
+        f"{rec['cost']['bytes_per_device'] / 1e9:.1f} GB/dev accessed, "
+        f"collective {rec['collective_bytes_per_device'] / 1e6:.1f} MB/dev "
+        f"{json.dumps({k: v['count'] for k, v in rec['collectives'].items()})}"
+        f", ops {json.dumps(rec['ops'])}; {secs:.1f} s (build "
+        f"{rec['lower_s']} s, counted step {rec['compile_s']} s, host "
+        f"CPU); at the H100 constants compute {a['compute_s'] * 1e3:.5g} "
+        f"ms, memory {a['memory_s'] * 1e3:.5g} ms, collective "
+        f"{a['collective_s'] * 1e3:.5g} ms a step, {a['dominant']}-bound, "
+        f"useful {a['useful_flop_ratio']:.3f} (counted, not measured; "
+        f"{smi})")
+
+
+def roofline_phase(dev, smi: str, cc, train_ms, cut=None,
+                   seq_len=TRAIN_S) -> None:
+    """Phase 13: one bf16 step of ``[train]``'s model and batch (B=2 x
+    4096, two microbatches, remat, the card's world of one) under the
+    per-rank counter (``utils/hlo_analysis.py``): its FLOPs and bytes,
+    the roofline's three terms at the H100 constants
+    (``launch/roofline.py``), the dominant one, and the bound beside
+    ``[train]``'s measured step.  ``cut``/``seq_len``: a CPU rehearsal's
+    smaller sizes (no measured step to compare)."""
+    import dataclasses
+    import torch
+    from repro_torch import models as tm
+    from repro_torch import training as tt
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline
+    from repro_torch.utils import hlo_analysis as ha
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), **(cut or {}))
+    model = tm.init_lm(cfg, torch.Generator().manual_seed(LM_SEED),
+                       device=dev)
+    opt = tt.AdamW(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    step_fn = tt.make_train_step(cfg, opt, remat=True,
+                                 microbatches=TRAIN_MICROBATCHES)
+    x, y = _first_batch(cc, seq_len)
+    batch = {"tokens": torch.from_numpy(x).to(dev),
+             "labels": torch.from_numpy(y).to(dev)}
+    state = opt.init(tm.lm_to_params(model))
+    _, state, met = step_fn(model, state, batch)          # warm
+    with ha.count_ops() as counted:
+        _, state, met = step_fn(model, state, batch)
+        loss = float(met["loss"])
+    check(bool(np.isfinite(loss)), f"[roofline] the counted step's loss "
+          f"{loss} is not finite")
+    tokens = TRAIN_B * seq_len
+    n_active = cfg.active_param_count()
+    a = roofline.analyze({
+        "status": "ok", "arch": cfg.name, "shape": "train_4k", "mesh": "1",
+        "devices": 1,
+        "cost": {"flops_per_device": counted.flops,
+                 "bytes_per_device": counted.bytes},
+        "collective_bytes_per_device": ha.total_collective_bytes(counted),
+        "model_flops_total": 6.0 * n_active * tokens,
+        "params_active": n_active,
+        "memory": {"argument_bytes": 0, "temp_bytes": None}})
+    vs = (f"{a['bound_s'] * 1e3 / train_ms:.4f} of [train]'s measured "
+          f"step {train_ms:.5g} ms" if train_ms else "no measured step")
+    log(f"[roofline] {cfg.name} {cfg.dtype} ({cfg.num_layers} layers), "
+        f"B={TRAIN_B} x {seq_len}, {TRAIN_MICROBATCHES} microbatches, "
+        f"remat, one step counted on {dev}: {counted.flops:.6g} FLOP, "
+        f"{counted.bytes:.6g} B accessed, "
+        f"{ha.total_collective_bytes(counted):g} B collective, "
+        f"{sum(counted.ops.values())} ATen ops, dots "
+        f"{ha.op_histogram(counted)['dot']}; at {roofline.PEAK_FLOPS:g} "
+        f"FLOP/s, {roofline.HBM_BW:g} B/s, {roofline.LINK_BW:g} B/s: "
+        f"compute {a['compute_s'] * 1e3:.5g} ms, memory "
+        f"{a['memory_s'] * 1e3:.5g} ms, collective "
+        f"{a['collective_s'] * 1e3:.5g} ms, {a['dominant']}-bound; "
+        f"bound {a['bound_s'] * 1e3:.5g} ms = {vs}; useful "
+        f"{a['useful_flop_ratio']:.4f} (6 x {n_active} x {tokens} over the "
+        f"counted FLOPs) ({smi})")
+    del model, state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def run(dev, n_corpora=N_CORPORA, n_files=N_FILES,
@@ -2522,12 +2724,19 @@ def main() -> int:
         f"its own)")
     log("[lm] masked_top_k " + json.dumps(topk))
     reset_launch_counts()
-    cc = train_phase(dev, smi)
+    cc, train_ms = train_phase(dev, smi)
     log(f"[train] launches {launch_counts()} (the training path has no "
         f"kernel of its own)")
     reset_launch_counts()
     dist_phase(dev, smi, cc)
     log(f"[dist] launches {launch_counts()} (the distribution layer has no "
+        f"kernel of its own)")
+    reset_launch_counts()
+    dryrun_phase(smi)
+    log(f"[dryrun] launches {launch_counts()} (host tooling, no kernel)")
+    reset_launch_counts()
+    roofline_phase(dev, smi, cc, train_ms)
+    log(f"[roofline] launches {launch_counts()} (the training path has no "
         f"kernel of its own)")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,8 @@ tensors.  Candidates are timed on the device only: a spin kernel
 (``torch.cuda._sleep``) holds the card while the host enqueues the calls
 between two CUDA events, so the host's launch cost does not count.  The
 JAX package's ``sweep_xla_flags`` has no CUDA counterpart (there are no
-XLA flags), and its ``hlo_profile`` waits for the LM side's HLO tooling.
+XLA flags).  :func:`hlo_profile` counts an eager run with
+``utils/hlo_analysis.py`` where the JAX package reads compiled HLO.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from . import ref
-from ._common import round_up_pow2
+from ._common import resolve_device, round_up_pow2
 
 CACHE_ENV = "REPRO_AUTOTUNE_CACHE"
 DEFAULT_CACHE_PATH = "AUTOTUNE_cache.json"
@@ -442,3 +443,35 @@ def tune_ell_vs_seg(gb, repeat: int = 3, save: bool = False
     if save:
         save_table()
     return entry
+
+
+# ----------------------------------------------------------------------- #
+# Op counts (utils/hlo_analysis + launch/roofline)                         #
+# ----------------------------------------------------------------------- #
+def hlo_profile(fn: Callable[..., Any], *args: Any,
+                device=None) -> Dict[str, Any]:
+    """Run ``fn(*args)`` once, its tensor arguments on ``device`` (the
+    card unless the caller asks for the CPU), and report what it does:
+    the op histogram (``utils.hlo_analysis.op_histogram``), collective
+    traffic, FLOPs and bytes accessed per rank, and the roofline class
+    (compute- or bandwidth-bound against ``launch/roofline.py``'s H100
+    ridge, ``PEAK_FLOPS / HBM_BW``)."""
+    from repro_torch.launch import roofline
+    from repro_torch.utils import hlo_analysis
+    dev = resolve_device(device)
+    args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+                 for a in args)
+    with hlo_analysis.count_ops() as rec:
+        fn(*args)
+    out: Dict[str, Any] = {
+        "ops": hlo_analysis.op_histogram(rec),
+        "collective_bytes": hlo_analysis.total_collective_bytes(rec),
+        "flops": rec.flops,
+        "bytes": rec.bytes,
+    }
+    if rec.bytes > 0:
+        out["intensity"] = rec.flops / rec.bytes
+        ridge = roofline.PEAK_FLOPS / roofline.HBM_BW
+        out["bound"] = ("compute" if out["intensity"] >= ridge
+                        else "bandwidth")
+    return out

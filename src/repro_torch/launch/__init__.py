@@ -1,2 +1,3 @@
-# Launchers of the port: LM serving (``serve``).  The JAX package's mesh
-# factory, dry-run, roofline and train launchers are not ported yet.
+# Launchers of the port: the mesh factory, the dry run and its roofline,
+# and the train and serve drivers.  ``dryrun`` creates its fake process
+# group only when called, never at import.

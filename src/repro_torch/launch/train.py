@@ -22,14 +22,18 @@ environment when that is set, else from ``--coordinator HOST:PORT`` with
 parameters, AdamW moments and batches are placed as DTensors by the
 sharding rules (``distributed/sharding.py``), and a rank reads the batch
 rows of its ``data`` coordinate (ranks that differ only in ``model`` read
-the same rows).  A family whose ops DTensor cannot shard raises
-``NotImplementedError`` naming the family and the op.
+the same rows).  Every family trains on a mesh (the MoE dispatch runs
+one shard a rank, ``models/moe.py``); should an op DTensor cannot shard
+raise ``NotImplementedError``, the launcher re-raises it naming the
+family.  ``--num-layers`` cuts the depth of the published config (a
+smoke run at full width).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import os
 import socket
 from typing import Dict, List, Optional
@@ -78,6 +82,9 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-scale config (CPU containers)")
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="cut the config's depth to this many layers "
+                         "(widths unchanged)")
     ap.add_argument("--corpus", default=None,
                     help=".npz compressed corpus (default: synthetic E)")
     ap.add_argument("--steps", type=int, default=100)
@@ -138,6 +145,8 @@ def _train(args, dev: torch.device, mesh) -> Dict:
     if args.reduced:
         cfg = reduced(cfg, vocab_size=max(cc.ga.vocab_size + 1, 257),
                       dtype="float32")
+    if args.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     model = init_lm(cfg, torch.Generator().manual_seed(0), device=dev)
 
     opt = AdamW(lr=args.lr, warmup_steps=min(100, args.steps // 10 + 1),

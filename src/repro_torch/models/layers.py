@@ -185,10 +185,34 @@ def init_attention(gen, cfg) -> Dict:
     return p
 
 
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", x, w)`` as a matmul over the flattened
+    heads x head_dim, unflattened.  On a mesh, DTensor may split that
+    flattened dim of the output (free when ``w``'s heads are replicated)
+    and of ``w``'s gradient over a mesh dim whose size the heads do not
+    divide; such a split falls off head boundaries and cannot view back
+    to heads.  So the output is gathered on that dim, and the flattened
+    weight re-enters as a DTensor of its own placement, whose gradient
+    DTensor returns to that placement."""
+    from torch.distributed.tensor import DTensor, Replicate
+    H, hd = w.shape[1], w.shape[2]
+    w2 = w.flatten(1)
+    if isinstance(w2, DTensor):
+        w2 = DTensor.from_local(w2.to_local(), w2.device_mesh,
+                                w2.placements, run_check=False)
+    y = x @ w2
+    if isinstance(y, DTensor):
+        last = y.ndim - 1
+        mesh = y.device_mesh
+        pl = tuple(Replicate() if p.is_shard(last) and H % mesh.size(i)
+                   else p for i, p in enumerate(y.placements))
+        if pl != tuple(y.placements):
+            y = y.redistribute(mesh, pl)
+    return y.unflatten(-1, (H, hd))
+
+
 def _qkv(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, ...]:
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q, k, v = (_heads(x, p[w]) for w in ("wq", "wk", "wv"))
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return q, k, v
@@ -262,4 +286,13 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attn_out(p, ctx: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(ctx, DTensor):
+        # the einsum flattens (b, s) and (h, k); DTensor (torch 2.11)
+        # cannot flatten dims whose inner one is split, so a split of s
+        # (the "attn_q" sequence split) or of k is gathered first
+        pl = tuple(Replicate() if p.is_shard(1) or p.is_shard(3) else p
+                   for p in ctx.placements)
+        if pl != tuple(ctx.placements):
+            ctx = ctx.redistribute(ctx.device_mesh, pl)
     return torch.einsum("bshk,hkd->bsd", ctx, p["wo"])

@@ -17,12 +17,16 @@
    in and out).
 4. ``compress``: ``int8_roundtrip`` and ``topk_compress`` of DTensor
    gradients against the same transforms of the full tensors.
-5. ``raises``: a 3x1 host mesh in a world of 4.
+5. ``moe``: each case of :data:`MOE_CASES` takes ``MOE_STEPS`` AdamW
+   steps on 2x2; the losses, (rank 0) the parameters after them
+   and the first MoE layer's input and router, and each rank's routing
+   indices of that layer with its ``data`` coordinate.
+6. ``raises``: a 3x1 host mesh in a world of 4.
 
 Each rank writes ``OUT_DIR/rank<r>.json``; rank 0 also writes
-``OUT_DIR/step_params.npz``.  ``launcher``: ``repro_torch.launch.train
---mesh 2x2`` as ``torchrun`` starts it (``env://`` on ``PORT``), writing
-``OUT_DIR/launcher<r>.json``.
+``OUT_DIR/step_params.npz`` and ``OUT_DIR/moe_<case>.npz``.
+``launcher``: ``repro_torch.launch.train --mesh 2x2`` as ``torchrun``
+starts it (``env://`` on ``PORT``), writing ``OUT_DIR/launcher<r>.json``.
 """
 
 import json
@@ -49,12 +53,25 @@ from repro_torch.distributed import (NamedSharding, PartitionSpec,
                                      spec_for)
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import train as tlaunch
+from repro_torch.models import moe as tmoe
 from repro_torch.models import partitioning as tpart
 from repro_torch.models import transformer as ttransformer
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
 
 GLOBAL_BATCH, SEQ, LR, STEPS, CUT = 8, 16, 1e-2, 6, 3
+MOE_STEPS = 2
+# case: (arch, overrides of ``reduced``) at the widths of ``tiny`` (DTensor
+# then reuses the sharding decisions of the dense scenarios); 4 experts
+# split over ``model`` (EP), 3 do not, so the rules split each expert's
+# ffn dim instead
+MOE_WIDTHS = dict(dtype="float32", d_model=32, num_heads=4, num_kv_heads=2,
+                  head_dim=8, d_ff=64, moe_d_ff=64, vocab_size=400)
+MOE_CASES = {
+    "qwen2_moe": ("qwen2_moe_a27b", {}),
+    "qwen2_moe_e3": ("qwen2_moe_a27b", {"moe_num_experts": 3}),
+    "jamba": ("jamba_v01_52b", {"num_layers": 8}),
+}
 
 
 def tiny():
@@ -242,6 +259,48 @@ def full_slices(mesh, placements, shape):
     return tuple(idx)
 
 
+def scenario_moe(cc, out, rank):
+    mesh = tmesh.make_host_mesh(model=2, data=2, device_type="cpu")
+    real_probs, real_plan = tmoe._router_probs, tmoe._plan
+    try:
+        for case, (arch, over) in MOE_CASES.items():
+            cfg = tm.reduced(get_config(arch), **MOE_WIDTHS, **over)
+            seen = {}
+
+            def probs_spy(p, x):
+                if "x" not in seen:
+                    seen["x"] = x.full_tensor().detach().numpy()
+                    seen["router"] = p["router"].full_tensor().detach(
+                    ).numpy()
+                return real_probs(p, x)
+
+            def plan_spy(probs, cfg):
+                res = real_plan(probs, cfg)
+                seen.setdefault("idx", res[0].tolist())
+                return res
+            tmoe._router_probs, tmoe._plan = probs_spy, plan_spy
+            model = model_on(cfg, mesh)
+            opt = tt.AdamW(lr=LR)
+            step = tt.make_train_step(cfg, opt)
+            state = opt.init(tm.lm_to_params(model))
+            losses = []
+            for s in range(MOE_STEPS):
+                model, state, met = step(model, state, batch_on(cc, mesh, s))
+                losses.append(float(met["loss"]))
+            tmoe._router_probs, tmoe._plan = real_probs, real_plan
+            # layer 1 is a MoE layer of both archs
+            out[f"moe_{case}"] = {
+                "losses": losses, "idx": seen["idx"],
+                "data_coord": mesh.get_coordinate()[0],
+                "expert_placements": str(model.layers[1].moe.wi.placements)}
+            params = full_params(model)
+            if rank == 0:
+                np.savez(os.path.join(out["dir"], f"moe_{case}.npz"),
+                         x=seen["x"], router=seen["router"], **params)
+    finally:
+        tmoe._router_probs, tmoe._plan = real_probs, real_plan
+
+
 def scenario_raises(out):
     try:
         tmesh.make_host_mesh(model=1, data=3, device_type="cpu")
@@ -273,6 +332,7 @@ def main():
         scenario_elastic(cfg, cc, out, rank)
         scenario_policy(cfg, cc, out, rank)
         scenario_compress(out)
+        scenario_moe(cc, out, rank)
         scenario_raises(out)
         dist.destroy_process_group()
         name = f"rank{rank}.json"

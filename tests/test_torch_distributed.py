@@ -49,6 +49,7 @@ from repro_torch.distributed.pipeline import gpipe, make_pp_mesh
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import partitioning as tpart
+from _torch_dist_worker import MOE_CASES, MOE_STEPS, MOE_WIDTHS
 
 torch.set_num_threads(1)
 
@@ -95,6 +96,8 @@ def ranks(tmp_path_factory):
                      **json.loads((out / f"launcher{r}.json").read_text()))
                 for r in range(WORLD)]
             done["params"] = dict(np.load(out / "step_params.npz"))
+            for case in MOE_CASES:
+                done[f"moe_{case}"] = dict(np.load(out / f"moe_{case}.npz"))
         return done
     yield results
     for p in procs:
@@ -110,11 +113,10 @@ def _tiny():
             tm.reduced(get_config("yi_9b"), **over))
 
 
-@pytest.fixture(scope="module")
-def jax_run(ranks):
-    """The JAX package's unsharded steps 0-5 from the port's seed-0
-    weights on corpus D's batches: (losses, parameters after step 0)."""
-    jcfg, tcfg = _tiny()
+def _jax_train(jcfg, tcfg, steps: int):
+    """The JAX package's unsharded ``steps`` from the port's seed-0
+    weights on corpus D's batches: (losses, parameters after step 0,
+    parameters after the last step)."""
     init = tm.lm_to_params(tm.init_lm(tcfg, torch.Generator().manual_seed(0),
                                       device="cpu"))
     params = jax.tree.map(lambda t: jnp.asarray(t.numpy()), init)
@@ -124,15 +126,35 @@ def jax_run(ranks):
     opt = jt.AdamW(lr=LR)
     step = jax.jit(jt.make_train_step(jcfg, opt))
     state = opt.init(params)
-    losses, first = [], None
-    for s in range(STEPS):
+    losses, kept = [], []
+    for s in range(steps):
         x, y = pl.batch_at(s)
         params, state, m = step(params, state, {"tokens": jnp.asarray(x),
                                                 "labels": jnp.asarray(y)})
         losses.append(float(m["loss"]))
-        if first is None:
-            first = {k: np.asarray(v) for k, v in flatten_with_paths(
-                jax.tree.map(np.asarray, params))}
+        if s in (0, steps - 1):
+            kept.append({k: np.asarray(v) for k, v in flatten_with_paths(
+                jax.tree.map(np.asarray, params))})
+    return losses, kept[0], kept[-1]
+
+
+@pytest.fixture(scope="module")
+def jax_moe(ranks):
+    """The JAX package's unsharded ``MOE_STEPS`` of each MoE case:
+    ``{case: (losses, parameters after the last step)}``."""
+    out = {}
+    for case in MOE_CASES:
+        losses, _, last = _jax_train(*_moe_cfgs(case), MOE_STEPS)
+        out[case] = (losses, last)
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_run(ranks, jax_moe):
+    """The JAX package's unsharded steps 0-5 of the tiny dense config:
+    (losses, parameters after step 0).  With it, the MoE references:
+    both are computed while the ranks run, before the first wait."""
+    losses, first, _ = _jax_train(*_tiny(), STEPS)
     return losses, first
 
 
@@ -228,17 +250,75 @@ def test_launcher_mesh_2x2_matches_1x1(ranks):
         assert not r["launcher_initialized_after"]
 
 
-@pytest.mark.parametrize("arch, family", [("qwen2-moe-a2.7b", "moe"),
-                                          ("jamba-v0.1-52b", "hybrid")])
-def test_launcher_names_what_dtensor_cannot_shard(arch, family):
-    """The MoE dispatch's ``searchsorted`` has no DTensor sharding
-    strategy: on a mesh the launcher raises, naming the family and the
-    op (dense, encoder-decoder, VLM and SSM archs train)."""
+def _moe_cfgs(case):
+    arch, over = MOE_CASES[case]
+    over = dict(MOE_WIDTHS, **over)
+    return (jm.reduced(jconfigs.get_config(arch), **over),
+            tm.reduced(get_config(arch), **over))
+
+
+@pytest.mark.parametrize("case", MOE_CASES)
+def test_moe_step_on_a_mesh_matches_the_jax_unsharded_step(case, ranks,
+                                                           jax_moe):
+    """MoE and hybrid archs on a 2x2 mesh (the routed experts one shard a
+    rank, ``models/moe.py``): ``MOE_STEPS`` AdamW steps within the dense
+    bounds of the JAX package's unsharded steps, and the first MoE
+    layer's routing indices equal to ``lax.top_k`` of the JAX package's
+    router on that layer's input.  ``qwen2_moe_e3``'s 3 experts do not
+    split over ``model``: the rules shard each expert's ffn dim."""
+    jcfg, _ = _moe_cfgs(case)
+    losses, want = jax_moe[case]
+    res = ranks()
+    split = "Shard(dim=2)" if case.endswith("e3") else "Shard(dim=0)"
+    idx = {}
+    for r in res["ranks"]:
+        got = r[f"moe_{case}"]
+        np.testing.assert_allclose(got["losses"], losses, rtol=0,
+                                   atol=LOSS_TOL)
+        assert got["expert_placements"].endswith(f"{split})")
+        idx.setdefault(got["data_coord"], got["idx"])
+        assert idx[got["data_coord"]] == got["idx"]   # model ranks agree
+    saved = res[f"moe_{case}"]
+    d = max(float(np.abs(saved[k] - want[k]).max()) for k in want)
+    assert d < PARAM_TOL, d
+    probs = jax.nn.softmax(jnp.einsum(
+        "bsd,de->bse", jnp.asarray(saved["x"]), jnp.asarray(
+            saved["router"])), axis=-1)
+    _, jidx = jax.lax.top_k(probs, jcfg.moe_top_k)
+    np.testing.assert_array_equal(
+        np.concatenate([np.asarray(idx[c]) for c in sorted(idx)]),
+        np.asarray(jidx))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-v0.1-52b"])
+def test_launcher_trains_moe_archs_on_a_mesh(arch):
+    """``launch.train --mesh 1x1 --reduced`` trains the MoE and hybrid
+    archs (their routed experts through ``local_map``), with the plain
+    path's losses bit for bit, and leaves the process group."""
+    argv = ["--device", "cpu", "--reduced", "--arch", arch, "--steps", "2",
+            "--global-batch", "2", "--seq-len", "8"]
+    plain = tlaunch.main(argv)["history"]
+    mesh = tlaunch.main(argv + ["--mesh", "1x1"])["history"]
+    assert all(np.isfinite(plain))
+    assert mesh == plain
+    assert not torch.distributed.is_initialized()
+
+
+def test_launcher_names_the_family_of_an_op_dtensor_cannot_shard(
+        monkeypatch):
+    """An op with no DTensor strategy raises ``NotImplementedError``; on
+    a mesh the launcher re-raises it naming the arch's family, and leaves
+    the process group."""
+    from repro_torch.models import moe as tmoe
+
+    def unsharded(*args, **kwargs):
+        raise NotImplementedError("aten.example: no sharding strategy")
+    monkeypatch.setattr(tmoe, "_dispatch_on_mesh", unsharded)
     with pytest.raises(NotImplementedError,
-                       match=rf"({family} family).*searchsorted"):
-        tlaunch.main(["--device", "cpu", "--reduced", "--arch", arch,
-                      "--steps", "1", "--global-batch", "2", "--seq-len",
-                      "8", "--mesh", "1x1"])
+                       match=r"\(moe family\).*aten.example"):
+        tlaunch.main(["--device", "cpu", "--reduced", "--arch",
+                      "qwen2-moe-a2.7b", "--steps", "1", "--global-batch",
+                      "2", "--seq-len", "8", "--mesh", "1x1"])
     assert not torch.distributed.is_initialized()
 
 
@@ -259,9 +339,18 @@ def test_one_rank_mesh_step_is_the_plain_step(world_of_one):
     equals the plain step bit for bit: the loss, the parameters and the
     stacked AdamW moments, which the optimizer writes through per-layer
     views of DTensors."""
+    _one_rank_step_is_plain(_tiny()[1], world_of_one)
+
+
+def test_one_rank_mesh_moe_step_is_the_plain_step(world_of_one):
+    """The same for a MoE arch: on a world of one the routed experts'
+    local function is the plain dispatch with every expert."""
+    _one_rank_step_is_plain(_moe_cfgs("qwen2_moe")[1], world_of_one)
+
+
+def _one_rank_step_is_plain(cfg, world_of_one):
     from repro_torch.distributed import distribute_lm
     from torch.distributed.tensor import DTensor
-    _, cfg = _tiny()
     rng = np.random.default_rng(0)
     batch = {k: torch.from_numpy(rng.integers(0, 400, (4, 8)))
              for k in ("tokens", "labels")}
