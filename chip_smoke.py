@@ -81,8 +81,9 @@ CUDA toolkit.  Phases:
    integer-valued float32 below 2^24), timed with CUDA events around one
    wrapper call (``ms``, median of 20 runs after warm-up) beside its bound
    (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s) and, for
-   the histogram and the row sums, a library yardstick the port never
-   calls.  Each record splits that time: ``device_ms`` is the device's own
+   the histogram, the row sums and the ``delta`` of kernels 1 and 3 (an
+   ``embedding_bag`` over the table with the mask folded in), a library
+   yardstick the port never calls.  Each record splits that time: ``device_ms`` is the device's own
    time a call (the kernels and memsets the call launches, from
    ``torch.profiler``; ``device_ops`` lists them) and ``host_us`` the
    wrapper's host cost a call (200 calls back to back on the host clock).
@@ -164,10 +165,13 @@ CUDA toolkit.  Phases:
    bit-equal (the routed experts through ``local_map``), then a step of
    each, host and device ms, as in (c).
 12. Dry run (``[dryrun]``), counts zeroed just before and read just
-   after: ``launch/dryrun.run_cell("qwen2-0.5b", "train_4k", "single")``
-   at full width on a 256-rank fake process group (meta tensors, the
-   host's work only): status, per-rank GiB, GFLOP, collective MB, the
-   seconds, and the cell's roofline terms at the H100 constants.
+   after: ``launch/dryrun.run_cell`` of four cells on the 16x16 mesh
+   (``qwen2-0.5b``/``train_4k``, ``yi-9b``/``decode_32k``,
+   ``whisper-large-v3``/``train_4k``, ``qwen2-moe-a2.7b``/``train_4k``)
+   at full width, each on a 256-rank fake process group (meta tensors,
+   the host's work only): each status checked ``ok``, per-rank GiB,
+   GFLOP, collective MB, the seconds, and the cell's roofline terms at
+   the H100 constants.
 13. Roofline (``[roofline]``), counts zeroed just before and read just
    after: one bf16 step of ``[train]``'s model and batch under the
    per-rank op counter (``utils/hlo_analysis.py``): FLOPs, bytes, the
@@ -288,10 +292,15 @@ GPIPE_REPS = 3
 DIST_MOE_ARCH, DIST_MOE_LAYERS = "qwen2-moe-a2.7b", 2
 DIST_MOE_B, DIST_MOE_S, DIST_MOE_STEPS = 1, 1024, 3
 
-# the dry-run phase (phase 12): one full-width cell on a 256-rank fake
-# process group (meta tensors on the host; no device work)
-DRYRUN_ARCH, DRYRUN_SHAPE, DRYRUN_MESH, DRYRUN_RANKS = (
-    "qwen2-0.5b", "train_4k", "single", 256)
+# the dry-run phase (phase 12): full-width cells on a 256-rank fake
+# process group each (meta tensors on the host; no device work): the
+# dense train step, and attention whose heads ``model`` splits unevenly
+# (yi: 32 query heads over 4 kv heads; whisper: 20 heads, self and cross
+# attention) or where torch 2.11 cannot flatten a split (qwen2-moe)
+DRYRUN_CELLS = (("qwen2-0.5b", "train_4k"), ("yi-9b", "decode_32k"),
+                ("whisper-large-v3", "train_4k"),
+                ("qwen2-moe-a2.7b", "train_4k"))
+DRYRUN_MESH, DRYRUN_RANKS = "single", 256
 
 TIMING_REPS = 20
 TIMING_WARMUP = 3
@@ -1073,7 +1082,7 @@ def kernel_phase(gb, sub, single, dev):
     n, R, K = src.shape
 
     def record(name, cu, replaces, got, want, fn, plain_ms, b, lib_ms=None,
-               ms=None):
+               ms=None, lib_note=None):
         """One kernel's record; ``fn`` calls its ops.py wrapper (timed here
         unless ``ms`` is given)."""
         err = max(max_abs_err(g, p) for g, p in zip(got, want))
@@ -1090,11 +1099,32 @@ def kernel_phase(gb, sub, single, dev):
                     "device_ops": dev_ops,
                     "plain_ms": plain_ms, "bound_ms": b[0],
                     "bound_by": b[1], "library_ms": lib_ms})
+        if lib_note:
+            out[-1]["library_note"] = lib_note
         log(f"[kernel] {name}: exact; {ms:.5g} ms (device {dev_ms} ms: "
             f"{dev_ops}; host {host_us} us a call; plain {plain_ms:.5g} ms, "
             f"bound {b[0]:.5g} ms by {b[1]}"
             + (f", library {lib_ms:.5g} ms" if lib_ms is not None else "")
-            + ")")
+            + (f" ({lib_note})" if lib_note else "") + ")")
+
+    def delta_bag(W, active, src, freq):
+        """The library's yardstick for a masked round's ``delta``: the
+        mask folded into the table (``W * active``, one row a source of
+        every corpus) and the plan's sources offset into it, outside the
+        timed call; then one ``embedding_bag`` of ``freq``-weighted sums a
+        row.  Returns the call and its ``delta`` check."""
+        n_, R_, K_ = src.shape
+        table = (W * (active if W.dim() == 2 else active[..., None])
+                 ).reshape(n_ * R_, -1)
+        idx = (src + (torch.arange(n_, device=src.device, dtype=src.dtype)
+                      * R_)[:, None, None]).reshape(n_ * R_, K_)
+        wts = freq.reshape(n_ * R_, K_)
+
+        def bag():
+            return torch.nn.functional.embedding_bag(
+                idx, table, per_sample_weights=wts, mode="sum")
+        return bag, bag().reshape(W.shape)
+    BAG_NOTE = "delta only, one call after folding the mask"
 
     # 1. one frontier round: the level-1 parents active, real weights
     active = (level == 1).to(torch.float32)
@@ -1102,12 +1132,17 @@ def kernel_phase(gb, sub, single, dev):
     got = ops.ell_propagate_batched(*args)
     want = ref.ell_propagate_batched_ref(*args)
     edges = int((freq != 0).sum())
+    bag, bag_delta = delta_bag(*args)
+    check(torch.equal(bag_delta, want[0]),
+          "ell_propagate_batched: embedding_bag yardstick disagrees")
+    del bag_delta
     record("ell_propagate_batched", "propagate_batched.cu",
            "src/repro/kernels/propagate_batched.py:96", got, want,
            lambda: ops.ell_propagate_batched(*args),
            time_ms(lambda: ref.ell_propagate_batched_ref(*args), dev),
            bound(plan_read_bytes(src, freq, active, 4) + 2 * n * R * 4,
-                 4 * edges))
+                 4 * edges), time_ms(bag, dev), lib_note=BAG_NOTE)
+    del bag
     log(f"[kernel] ell_propagate_batched shape: N={n} R={R} K={K}")
 
     # 2. the whole frontier loop, at the pack and on the single corpus's
@@ -1151,12 +1186,16 @@ def kernel_phase(gb, sub, single, dev):
     got = ops.ell_propagate_vector(*vargs)
     want = ref.ell_propagate_vector_ref(*vargs)
     vedges = int((vfreq != 0).sum())
+    vbag, vbag_delta = delta_bag(*vargs)
+    check(torch.equal(vbag_delta, want[0]),
+          "ell_propagate_vector: embedding_bag yardstick disagrees")
     record("ell_propagate_vector", "propagate_vector.cu",
            "src/repro/kernels/propagate_vector.py:111", got, want,
            lambda: ops.ell_propagate_vector(*vargs),
            time_ms(lambda: ref.ell_propagate_vector_ref(*vargs), dev),
            bound(plan_read_bytes(vsrc, vfreq, vactive, 4 * F)
-                 + vn * vR * (F + 1) * 4, 3 * vedges * F))
+                 + vn * vR * (F + 1) * 4, 3 * vedges * F),
+           time_ms(vbag, dev), lib_note=BAG_NOTE)
     taken = int(((vfreq != 0) & (torch.gather(
         vactive, 1, vsrc.reshape(vn, -1).long()).reshape(vsrc.shape) > 0)
         ).sum())
@@ -2492,40 +2531,46 @@ def _first_batch(cc, seq_len, batch=TRAIN_B):
 # The dry run (phase 12) and the roofline of a train step (phase 13)       #
 # ----------------------------------------------------------------------- #
 def dryrun_phase(smi: str, cut=None) -> None:
-    """Phase 12: ``run_cell`` of DRYRUN_ARCH/DRYRUN_SHAPE/DRYRUN_MESH at
-    full width on a DRYRUN_RANKS-rank fake process group (meta tensors:
-    the host's work only), and the cell's roofline terms at the H100
-    constants.  ``cut``: a CPU rehearsal's smaller config."""
+    """Phase 12: ``run_cell`` of each of DRYRUN_CELLS at full width on a
+    DRYRUN_RANKS-rank fake process group (meta tensors: the host's work
+    only), each cell's status checked, and its roofline terms at the H100
+    constants.  ``cut``: a CPU rehearsal's smaller configs (each key a
+    config uses)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun, roofline
-    cfg = dataclasses.replace(get_config(DRYRUN_ARCH), **(cut or {}))
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        with dryrun.fake_world(DRYRUN_RANKS):
-            rec = dryrun.run_cell(DRYRUN_ARCH, DRYRUN_SHAPE, DRYRUN_MESH,
-                                  out_dir=tmp, force=True, cfg=cfg)
-    secs = time.perf_counter() - t0
-    check(rec["status"] == "ok", f"[dryrun] {DRYRUN_ARCH} {DRYRUN_SHAPE} "
-          f"{DRYRUN_MESH}: {rec.get('error')}\n{rec.get('trace')}")
-    a = roofline.analyze(rec)
-    log(f"[dryrun] {DRYRUN_ARCH} ({cfg.num_layers} layers) {DRYRUN_SHAPE} "
-        f"{DRYRUN_MESH} on {rec['devices']} fake ranks (torch "
-        f"{torch.__version__}): status {rec['status']}, "
-        f"{rec['memory']['argument_bytes'] / 2**30:.4f} GiB/dev "
-        f"(arguments, the rules' shards), "
-        f"{rec['cost']['flops_per_device'] / 1e9:.1f} GFLOP/dev, "
-        f"{rec['cost']['bytes_per_device'] / 1e9:.1f} GB/dev accessed, "
-        f"collective {rec['collective_bytes_per_device'] / 1e6:.1f} MB/dev "
-        f"{json.dumps({k: v['count'] for k, v in rec['collectives'].items()})}"
-        f", ops {json.dumps(rec['ops'])}; {secs:.1f} s (build "
-        f"{rec['lower_s']} s, counted step {rec['compile_s']} s, host "
-        f"CPU); at the H100 constants compute {a['compute_s'] * 1e3:.5g} "
-        f"ms, memory {a['memory_s'] * 1e3:.5g} ms, collective "
-        f"{a['collective_s'] * 1e3:.5g} ms a step, {a['dominant']}-bound, "
-        f"useful {a['useful_flop_ratio']:.3f} (counted, not measured; "
-        f"{smi})")
+    for arch, shape in DRYRUN_CELLS:
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, **{k: v for k, v in (cut or {}).items()
+                                          if getattr(cfg, k)})
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            with dryrun.fake_world(DRYRUN_RANKS):
+                rec = dryrun.run_cell(arch, shape, DRYRUN_MESH, out_dir=tmp,
+                                      force=True, cfg=cfg)
+        secs = time.perf_counter() - t0
+        check(rec["status"] == "ok", f"[dryrun] {arch} {shape} "
+              f"{DRYRUN_MESH}: {rec.get('error')}\n{rec.get('trace')}")
+        a = roofline.analyze(rec)
+        log(f"[dryrun] {arch} ({cfg.num_layers} layers) {shape} "
+            f"{DRYRUN_MESH} on {rec['devices']} fake ranks (torch "
+            f"{torch.__version__}): status {rec['status']}, "
+            f"{rec['memory']['argument_bytes'] / 2**30:.4f} GiB/dev "
+            f"(arguments, the rules' shards), "
+            f"{rec['cost']['flops_per_device'] / 1e9:.1f} GFLOP/dev, "
+            f"{rec['cost']['bytes_per_device'] / 1e9:.1f} GB/dev accessed, "
+            f"collective {rec['collective_bytes_per_device'] / 1e6:.1f} "
+            f"MB/dev "
+            f"{json.dumps({k: v['count'] for k, v in rec['collectives'].items()})}"
+            f", ops {json.dumps(rec['ops'])}; {secs:.1f} s (build "
+            f"{rec['lower_s']} s, counted step {rec['compile_s']} s, host "
+            f"CPU); at the H100 constants compute "
+            f"{a['compute_s'] * 1e3:.5g} ms, memory "
+            f"{a['memory_s'] * 1e3:.5g} ms, collective "
+            f"{a['collective_s'] * 1e3:.5g} ms a step, {a['dominant']}-bound"
+            f", useful {a['useful_flop_ratio']:.3f} (counted, not measured; "
+            f"{smi})")
 
 
 def roofline_phase(dev, smi: str, cc, train_ms, cut=None,

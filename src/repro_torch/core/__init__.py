@@ -8,7 +8,7 @@ arenas and ``selector`` choosing the traversal strategy, or
 analytics via ``batch.run_batched``.
 """
 
-from .sequitur import Grammar, IncrementalSequitur, compress_files
+from .sequitur import Grammar, IncrementalSequitur, compress, compress_files
 from .grammar import (GrammarArrays, StaleGrammarError, expand_range,
                       flatten, pow2_bucket)
 from .batch import (ANALYTICS_KINDS, METHODS, GrammarBatch,
@@ -29,7 +29,7 @@ from .memory import (ArenaPlan, head_tail_upper_limit, plan_local_tables,
                      plan_streams, stream_upper_limit)
 
 __all__ = [
-    "Grammar", "IncrementalSequitur", "compress_files",
+    "Grammar", "IncrementalSequitur", "compress", "compress_files",
     "GrammarArrays", "StaleGrammarError", "flatten", "expand_range",
     "pow2_bucket",
     "top_down_weights", "per_file_weights", "bottom_up_tables",

@@ -113,6 +113,18 @@ class GrammarArrays:
     def rule_body(self, r: int) -> np.ndarray:
         return self.body[self.body_offsets[r]: self.body_offsets[r + 1]]
 
+    def is_word(self, sym: np.ndarray) -> np.ndarray:
+        return sym < self.vocab_size
+
+    def is_splitter(self, sym: np.ndarray) -> np.ndarray:
+        return (sym >= self.vocab_size) & (sym < self.num_terminals)
+
+    def is_rule_sym(self, sym: np.ndarray) -> np.ndarray:
+        return sym >= self.num_terminals
+
+    def sym_rule(self, sym: np.ndarray) -> np.ndarray:
+        return sym - self.num_terminals
+
     # ------------------------------------------------------- ELL layout --
     def in_edges_ell_dense(self, k: int | None = None
                            ) -> Tuple[np.ndarray, np.ndarray]:

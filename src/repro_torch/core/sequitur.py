@@ -316,6 +316,22 @@ class _Sequitur:
         return Grammar(num_terminals=num_terminals, rules=rules)
 
 
+def compress(tokens: Sequence[int] | np.ndarray, num_terminals: int) -> Grammar:
+    """Run Sequitur over a token stream; returns the inferred grammar.
+
+    ``tokens`` must all be in ``[0, num_terminals)``.
+    """
+    sq = _Sequitur()
+    root = sq.new_rule()
+    assert root == 0
+    for t in np.asarray(tokens, dtype=np.int64):
+        v = int(t)
+        if not (0 <= v < num_terminals):
+            raise ValueError(f"token {v} outside [0, {num_terminals})")
+        sq.append(root, v)
+    return sq.export(num_terminals)
+
+
 class IncrementalSequitur:
     """Live multi-file Sequitur state that absorbs appended files.
 

@@ -22,12 +22,14 @@ attention masked with ``-1e30`` (not ``-inf``) in both branches.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 
 @dataclasses.dataclass
@@ -185,6 +187,16 @@ def init_attention(gen, cfg) -> Dict:
     return p
 
 
+def own_grad_placement(w: torch.Tensor) -> torch.Tensor:
+    """``w``; a DTensor re-entered as a DTensor of its own placement,
+    whose gradient DTensor then returns to that placement, whatever
+    placement the ops that read it give their gradient."""
+    if not isinstance(w, DTensor):
+        return w
+    return DTensor.from_local(w.to_local(), w.device_mesh, w.placements,
+                              run_check=False)
+
+
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk", x, w)`` as a matmul over the flattened
     heads x head_dim, unflattened.  On a mesh, DTensor may split that
@@ -192,15 +204,10 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     and of ``w``'s gradient over a mesh dim whose size the heads do not
     divide; such a split falls off head boundaries and cannot view back
     to heads.  So the output is gathered on that dim, and the flattened
-    weight re-enters as a DTensor of its own placement, whose gradient
-    DTensor returns to that placement."""
-    from torch.distributed.tensor import DTensor, Replicate
+    weight's gradient is returned to its placement
+    (:func:`own_grad_placement`)."""
     H, hd = w.shape[1], w.shape[2]
-    w2 = w.flatten(1)
-    if isinstance(w2, DTensor):
-        w2 = DTensor.from_local(w2.to_local(), w2.device_mesh,
-                                w2.placements, run_check=False)
-    y = x @ w2
+    y = x @ own_grad_placement(w.flatten(1))
     if isinstance(y, DTensor):
         last = y.ndim - 1
         mesh = y.device_mesh
@@ -211,8 +218,13 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.unflatten(-1, (H, hd))
 
 
-def _qkv(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, ...]:
-    q, k, v = (_heads(x, p[w]) for w in ("wq", "wk", "wv"))
+def _qkv(p, x: torch.Tensor, cfg, kv_x: Optional[torch.Tensor] = None
+         ) -> Tuple[torch.Tensor, ...]:
+    """The head projections (and biases) of ``x``; k and v of ``kv_x``
+    when given (whisper's cross attention reads the encoder output)."""
+    kv_x = x if kv_x is None else kv_x
+    q, k, v = (_heads(src, p[w])
+               for src, w in ((x, "wq"), (kv_x, "wk"), (kv_x, "wv")))
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return q, k, v
@@ -241,8 +253,17 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``q_offset``: absolute position of q[0] (decode: cache length).
     ``kv_len``: valid kv prefix length (decode with pre-allocated cache).
     ``chunk`` > 0: loop over kv blocks with online softmax (bounded memory
-    for long prefill).
+    for long prefill).  On DTensors the core runs one shard a rank
+    (:func:`_attention_on_mesh`).
     """
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        return _attention_on_mesh(q, k, v, causal, q_offset, kv_len, chunk)
+    return _attention(q, k, v, causal, q_offset, kv_len, chunk)
+
+
+def _attention(q, k, v, causal, q_offset, kv_len, chunk) -> torch.Tensor:
+    """:func:`gqa_attention` on plain tensors: G = H // Hkv query heads a
+    kv head."""
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -285,14 +306,151 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
+
+def _local_kv(kv: torch.Tensor, head0: int, H: int, G: int) -> torch.Tensor:
+    """The kv heads that query heads ``head0 .. head0 + H - 1`` read (head
+    h reads kv head h // G of ``kv [B, S, Hkv, D]``), laid out so that
+    :func:`_attention`'s group reshape pairs them right: a slice where
+    the H heads make whole groups or lie in one group (``head0`` is a
+    multiple of H), else one kv head a query head."""
+    if H % G == 0 or G % H == 0:
+        lo = head0 // G
+        return kv[:, :, lo:lo + max(H // G, 1)]
+    return kv.index_select(2, torch.div(
+        head0 + torch.arange(H, device=kv.device), G, rounding_mode="floor"))
+
+
+class _MeshLayout:
+    """Placements for a function run one shard a rank (``local_map``):
+    the mesh's ``model`` dim, and the batch rows (dim 0 of ``first``)
+    over its other dims, ``Shard(0)`` when the batch divides them, else
+    every row on every rank.  Plain operands become replicated
+    DTensors."""
+
+    def __init__(self, first: torch.Tensor, *others: torch.Tensor):
+        mesh = next(t.device_mesh for t in (first,) + others
+                    if isinstance(t, DTensor))
+        self.mesh = mesh
+        names = mesh.mesh_dim_names or ()
+        self.m_dim = names.index("model") if "model" in names else None
+        self.m = mesh.size(self.m_dim) if self.m_dim is not None else 1
+        n_rows = math.prod(mesh.size(i) for i in range(mesh.ndim)
+                           if i != self.m_dim)
+        self.rows = (Shard(0) if n_rows > 1
+                     and first.shape[0] % n_rows == 0 else Replicate())
+
+    def placed(self, t: torch.Tensor) -> DTensor:
+        if isinstance(t, DTensor):
+            return t
+        return DTensor.from_local(t, self.mesh,
+                                  [Replicate()] * self.mesh.ndim,
+                                  run_check=False)
+
+    def at(self, model, rows=None):
+        """Placements: ``model`` on the model dim, ``rows`` (the batch
+        rows' placement by default) on the others."""
+        rows = self.rows if rows is None else rows
+        return tuple(model if i == self.m_dim else rows
+                     for i in range(self.mesh.ndim))
+
+    def run(self, fn, outs, ins, grads, *args):
+        """``fn`` of ``args`` placed by ``ins``, one shard a rank; its
+        outputs placed by ``outs`` (one placement tuple an output), each
+        argument's gradient by ``grads``."""
+        from torch.distributed.tensor.experimental import local_map
+        args = [self.placed(t).redistribute(self.mesh, pl)
+                for t, pl in zip(args, ins)]
+        return local_map(fn, out_placements=outs, in_placements=ins,
+                         in_grad_placements=grads,
+                         device_mesh=self.mesh)(*args)
+
+
+class _AttnLayout(_MeshLayout):
+    """Attention's :class:`_MeshLayout`, with the ``model`` dim's split of
+    the query read off ``q``'s placement: ``"heads"`` (``Shard(2)``),
+    ``"seq"`` (``Shard(1)``, the ``attn_q`` policy) or ``None``
+    (replicated); ``coord`` is the rank's index along a split."""
+
+    def __init__(self, q: torch.Tensor, *others: torch.Tensor):
+        super().__init__(q, *others)
+        q = self.placed(q)
+        q_model = (q.placements[self.m_dim] if self.m_dim is not None
+                   else Replicate())
+        self.split = None
+        if self.m > 1 and q_model.is_shard(2) and q.shape[2] % self.m == 0:
+            self.split = "heads"
+        elif self.m > 1 and q_model.is_shard(1) and \
+                q.shape[1] % self.m == 0:
+            self.split = "seq"
+        self.coord = (self.mesh.get_local_rank(self.m_dim) if self.split
+                      else 0)
+
+    def by_split(self, heads, seq, neither):
+        return {"heads": heads, "seq": seq}.get(self.split, neither)
+
+
+def _attention_on_mesh(q, k, v, causal, q_offset, kv_len, chunk
+                       ) -> torch.Tensor:
+    """:func:`_attention` of DTensors, one shard a rank, by ``local_map``
+    (:class:`_AttnLayout`): scores, mask, softmax (or the online-softmax
+    chunks) and the value product are local; each rank takes its batch
+    rows and, by the ``model`` dim's split of q:
+
+    * query heads (``Shard(2)``): H/m query heads.  kv heads that ``model``
+      divides follow them (``Shard(2)``, whole groups, the plain reshape);
+      others enter replicated on ``model`` and the rank takes the kv head
+      of each of its heads (:func:`_local_kv`), their gradients partial
+      sums on ``model``;
+    * query sequence (``Shard(1)``): its query rows against every key,
+      the causal mask offset by the rows before them; k and v replicated
+      on ``model``, their gradients partial;
+    * neither: q is replicated on ``model``, every rank runs its rows.
+
+    The output is placed as q is."""
+    lay = _AttnLayout(q, k, v)
+    H, Hkv = q.shape[2], k.shape[2]
+    kv_follow = lay.split == "heads" and Hkv % lay.m == 0
+    q_pl = lay.at(lay.by_split(Shard(2), Shard(1), Replicate()))
+    kv_pl = lay.at(Shard(2) if kv_follow else Replicate())
+    kv_grad = lay.at(Shard(2) if kv_follow else
+                     Partial() if lay.split else Replicate())
+
+    def local(ql, kl, vl):
+        off = q_offset
+        if lay.split == "seq":
+            off = q_offset + lay.coord * ql.shape[1]
+        elif lay.split == "heads" and not kv_follow:
+            h = ql.shape[2]
+            kl, vl = (_local_kv(t, lay.coord * h, h, H // Hkv)
+                      for t in (kl, vl))
+        return _attention(ql, kl, vl, causal, off, kv_len, chunk)
+
+    return lay.run(local, (q_pl,), (q_pl, kv_pl, kv_pl),
+                   (q_pl, kv_grad, kv_grad), q, k, v)
+
+
 def attn_out(p, ctx: torch.Tensor) -> torch.Tensor:
-    from torch.distributed.tensor import DTensor, Replicate
-    if isinstance(ctx, DTensor):
-        # the einsum flattens (b, s) and (h, k); DTensor (torch 2.11)
-        # cannot flatten dims whose inner one is split, so a split of s
-        # (the "attn_q" sequence split) or of k is gathered first
-        pl = tuple(Replicate() if p.is_shard(1) or p.is_shard(3) else p
-                   for p in ctx.placements)
-        if pl != tuple(ctx.placements):
-            ctx = ctx.redistribute(ctx.device_mesh, pl)
-    return torch.einsum("bshk,hkd->bsd", ctx, p["wo"])
+    """``einsum("bshk,hkd->bsd", ctx, wo)``.  On DTensors it runs one
+    shard a rank (:class:`_AttnLayout`): ``ctx`` keeps the attention core's
+    placement and ``wo`` is gathered, but for its heads on ``model`` when
+    those of ``ctx`` are split there.  The output is a partial sum on
+    ``model`` (heads split), or split as the query sequence is and then
+    gathered: the layer's residual stream keeps its sequence whole, as
+    the FFN's matmul needs on torch 2.11, which cannot flatten (b, s)
+    with s split.  No gradient of ``ctx`` is split off head boundaries
+    (an unsplit head count ``model`` does not divide)."""
+    wo = p["wo"]
+    if not isinstance(ctx, DTensor) and not isinstance(wo, DTensor):
+        return torch.einsum("bshk,hkd->bsd", ctx, wo)
+    lay = _AttnLayout(ctx, wo)
+    ctx_pl = lay.at(lay.by_split(Shard(2), Shard(1), Replicate()))
+    wo_pl = lay.at(lay.by_split(Shard(0), Replicate(), Replicate()),
+                   Replicate())
+    wo_grad = lay.at(lay.by_split(Shard(0), Partial(), Replicate()),
+                     Partial() if lay.rows.is_shard() else Replicate())
+    out_pl = lay.at(lay.by_split(Partial(), Shard(1), Replicate()))
+    y = lay.run(functools.partial(torch.einsum, "bshk,hkd->bsd"), (out_pl,),
+                (ctx_pl, wo_pl), (ctx_pl, wo_grad), ctx, wo)
+    if lay.split == "seq":
+        y = y.redistribute(lay.mesh, lay.at(Replicate()))
+    return y

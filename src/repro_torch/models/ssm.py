@@ -11,17 +11,23 @@ serving cache and does the O(1) recurrence.
 ``decay = exp(a_q - a_k)`` is computed for every pair and the upper
 triangle (which overflows) is then zeroed with ``where``, never by
 multiplying with a mask (``inf * 0`` is NaN).
+
+On DTensors the scan and the decode recurrence run one shard a rank
+(:func:`_heads_per_rank`): both treat every (batch row, head) apart.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from .layers import Boxed, _dtype, dense_init, ones_init, rms_norm, zeros_init
+from .layers import (Boxed, _MeshLayout, _dtype, dense_init, ones_init,
+                     rms_norm, zeros_init)
 
 
 def init_mamba(gen, cfg) -> Dict:
@@ -104,7 +110,8 @@ def apply_mamba(p, x_in: torch.Tensor, cfg, chunk: int = 64
     A = -torch.exp(p["A_log"])                         # [H]
     dA = dt_ * A                                       # [B,S,H] log-decay
 
-    y = _ssd_chunked(Xh.float(), Bh.float(), Ch.float(), dt_, dA, chunk)
+    y = _heads_per_rank(functools.partial(_ssd_chunked, Q=chunk), 2, 1,
+                        Xh.float(), Bh.float(), Ch.float(), dt_, dA)
     y = y + Xh.float() * p["D"][None, None, :, None]
     y = y.reshape(Bb, S, di)
     y = rms_norm(y.to(x_in.dtype) * F.silu(z), p["norm"], cfg.norm_eps)
@@ -152,6 +159,34 @@ def _ssd_chunked(X, B_, C_, dt_, dA, Q: int):
     return Y[:, :S]
 
 
+def _state_step(h, decay, Xh, Bh, Ch, dt_):
+    """One recurrence step of every (row, head): the read-out ``y [B,H,P]``
+    and the new state ``h [B,H,P,N]``."""
+    h = h * decay[..., None, None] + \
+        torch.einsum("bhp,bhn,bh->bhpn", Xh, Bh, dt_)
+    return torch.einsum("bhn,bhpn->bhp", Ch, h), h
+
+
+def _heads_per_rank(fn, head_dim: int, n_out: int, *args):
+    """``fn(*args)``; on DTensors one shard a rank (``local_map``).  Each
+    argument's dim 0 is the batch and its dim ``head_dim`` the heads, as
+    are the ``n_out`` outputs'; ``fn`` treats every (row, head) apart.
+    Rows go over the batch mesh dims where the batch divides them
+    (:class:`~.layers._MeshLayout`), heads over ``model`` where their
+    count divides it; every other dim is gathered (a split of the state's
+    ``P`` on a narrow mesh included).  So no DTensor op inside flattens a
+    split dim (torch 2.11 cannot) or lacks a sharding strategy (torch
+    2.11 has none for the ``flip`` of ``cumsum``'s backward).  Gradients
+    are placed as their inputs."""
+    if not any(isinstance(a, DTensor) for a in args):
+        return fn(*args)
+    lay = _MeshLayout(*args)
+    heads = (Shard(head_dim) if lay.m > 1
+             and args[0].shape[head_dim] % lay.m == 0 else Replicate())
+    pl = (lay.at(heads),) * len(args)
+    return lay.run(fn, pl[:1] * n_out, pl, pl, *args)
+
+
 def apply_mamba_decode(p, x_in: torch.Tensor, state: Dict, cfg
                        ) -> Tuple[torch.Tensor, Dict]:
     """One-token recurrence. x_in: [B, 1, d]; state: {"h": [B,H,P,N],
@@ -179,9 +214,8 @@ def apply_mamba_decode(p, x_in: torch.Tensor, state: Dict, cfg
     A = -torch.exp(p["A_log"])
     decay = torch.exp(dt_ * A)                        # [B,H]
 
-    h = state["h"] * decay[..., None, None] + \
-        torch.einsum("bhp,bhn,bh->bhpn", Xh, Bh, dt_)
-    y = torch.einsum("bhn,bhpn->bhp", Ch, h)
+    y, h = _heads_per_rank(_state_step, 1, 2, state["h"], decay, Xh, Bh,
+                           Ch, dt_)
     y = y + Xh * p["D"][None, :, None]
     y = y.reshape(Bb, 1, di)
     y = rms_norm(y.to(x_in.dtype) * F.silu(z), p["norm"], cfg.norm_eps)

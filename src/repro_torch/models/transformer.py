@@ -53,10 +53,10 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.kernels._common import resolve_device
 
 from .config import ModelConfig
-from .layers import (Boxed, _dtype, _qkv, apply_ffn, apply_rope, attn_out,
-                     dense_init, gqa_attention, init_attention, init_ffn,
-                     layer_norm, ones_init, rms_norm, rope_frequencies,
-                     zeros_init)
+from .layers import (Boxed, _dtype, _heads, _qkv, apply_ffn, apply_rope,
+                     attn_out, dense_init, gqa_attention, init_attention,
+                     init_ffn, layer_norm, ones_init, own_grad_placement,
+                     rms_norm, rope_frequencies, zeros_init)
 from .moe import apply_moe, init_moe
 from .partitioning import constrain, mesh_scope
 from .ssm import (apply_mamba, apply_mamba_decode, init_mamba,
@@ -226,14 +226,8 @@ def _mixer(cfg, p, x, positions, inv_freq, *, kind, chunk, enc_out=None):
         x = x + apply_mamba(p["mamba"], h, cfg)
     if enc_out is not None and "cross" in p:
         h = _apply_norm(cfg, p["cross_norm"], x)
-        q = torch.einsum("bsd,dhk->bshk", h, p["cross"]["wq"])
+        q, k, v = _qkv(p["cross"], h, cfg, kv_x=enc_out)
         q = constrain(q, "attn_q")
-        k = torch.einsum("bsd,dhk->bshk", enc_out, p["cross"]["wk"])
-        v = torch.einsum("bsd,dhk->bshk", enc_out, p["cross"]["wv"])
-        if "bq" in p["cross"]:
-            q = q + p["cross"]["bq"]
-            k = k + p["cross"]["bk"]
-            v = v + p["cross"]["bv"]
         ctx = gqa_attention(q, k, v, causal=False, chunk=0)
         x = x + attn_out(p["cross"], ctx)
     return x
@@ -309,8 +303,12 @@ def _embed(model, tokens: torch.Tensor, dt) -> torch.Tensor:
     are gathered over the mesh dims that split them first: the JAX
     package's gather of a vocabulary-sharded table fails to partition,
     and DTensor's masked strategy for it fails to reduce when the tokens
-    are split over another mesh dim.  The ``embed`` dim stays sharded."""
-    table = model["embed"]
+    are split over another mesh dim.  The ``embed`` dim stays sharded.
+    A tied table's two gradients (this lookup's and the head's,
+    :func:`_logits`) each return to the table's placement before they
+    are summed: torch 2.11 cannot move one's ``Shard`` to the other's
+    ``Partial``."""
+    table = own_grad_placement(model["embed"])
     if isinstance(table, DTensor) and any(
             p.is_shard(0) for p in table.placements):
         table = table.redistribute(table.device_mesh, [
@@ -329,7 +327,8 @@ def _on_mesh(fn: Callable) -> Callable:
 
 def _logits(cfg, model, x, dt):
     x = _apply_norm(cfg, model["final_norm"], x)
-    head = model["embed"].T if cfg.tie_embeddings else model["lm_head"]
+    head = (own_grad_placement(model["embed"]).T if cfg.tie_embeddings
+            else model["lm_head"])
     logits = (x @ head.to(dt)).float()
     return constrain(logits, "logits")
 
@@ -433,6 +432,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
+def _write_at(slot: torch.Tensor, new: torch.Tensor, pos: int) -> None:
+    """``slot[:, pos:pos + 1] = new`` in place (``slot`` a cache entry
+    ``[B, L, ...]``).  Where the rules split a DTensor cache's sequence
+    (kv heads ``model`` does not divide), a slice of it is a gathered
+    copy and the write would be lost: the rank that holds position
+    ``pos`` writes it into its shard instead."""
+    if not (isinstance(slot, DTensor)
+            and any(p.is_shard(1) for p in slot.placements)):
+        slot[:, pos:pos + 1] = new
+        return
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = slot.device_mesh
+    shape, offset = compute_local_shape_and_global_offset(
+        slot.shape, mesh, slot.placements)
+    new = new.redistribute(mesh, [Replicate() if p.is_shard(1) else p
+                                  for p in slot.placements]).to_local()
+    at = pos - offset[1]
+    if 0 <= at < shape[1]:
+        slot.to_local()[:, at:at + 1] = new
+
+
 @_on_mesh
 def decode_step(cfg: ModelConfig, model: LM, cache: Dict, tokens,
                 unroll: bool = False) -> Tuple[torch.Tensor, Dict]:
@@ -469,8 +490,8 @@ def decode_step(cfg: ModelConfig, model: LM, cache: Dict, tokens,
             q = apply_rope(q, positions, inv_freq)
             k1 = apply_rope(k1, positions, inv_freq)
             k, v = ce["k"][r], ce["v"][r]
-            k[:, pos:pos + 1] = k1
-            v[:, pos:pos + 1] = v1
+            _write_at(k, k1, pos)
+            _write_at(v, v1, pos)
             ctx = gqa_attention(q, k, v, causal=False, q_offset=pos,
                                 kv_len=pos + 1, chunk=0)
             x = x + attn_out(lp["attn"], ctx)
@@ -483,7 +504,7 @@ def decode_step(cfg: ModelConfig, model: LM, cache: Dict, tokens,
             ce["conv"][r] = st["conv"]
         if "cross" in lp:
             hc = _apply_norm(cfg, lp["cross_norm"], x)
-            q = torch.einsum("bsd,dhk->bshk", hc, lp["cross"]["wq"])
+            q = _heads(hc, lp["cross"]["wq"])
             if "bq" in lp["cross"]:
                 q = q + lp["cross"]["bq"]
             ctx = gqa_attention(q, cross_k[r], cross_v[r], causal=False,
@@ -509,8 +530,7 @@ def prefill_cross(cfg: ModelConfig, model: LM, cache: Dict,
     for p_pos in range(bs):
         for lp in list(model["layers"])[p_pos::bs]:
             cr = lp["cross"]
-            k = torch.einsum("bsd,dhk->bshk", enc_out, cr["wk"])
-            v = torch.einsum("bsd,dhk->bshk", enc_out, cr["wv"])
+            k, v = _heads(enc_out, cr["wk"]), _heads(enc_out, cr["wv"])
             if "bk" in cr:
                 k, v = k + cr["bk"], v + cr["bv"]
             ks.append(k)

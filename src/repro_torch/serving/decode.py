@@ -15,11 +15,24 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.kernels._common import resolve_device
 from repro_torch.models import (apply_lm, decode_step, init_cache,
                                 prefill_cross)
 from repro_torch.models.config import ModelConfig
+
+
+def _argmax(x: torch.Tensor) -> torch.Tensor:
+    """``argmax`` over the last (vocabulary) dim.  DTensor's argmax over a
+    split dim mis-shapes its gather of the shards' maxima (torch 2.13, on
+    gloo and fake groups alike), so a split vocabulary is gathered
+    first."""
+    if isinstance(x, DTensor):
+        last = x.ndim - 1
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if p.is_shard(last) else p for p in x.placements])
+    return torch.argmax(x, dim=-1)
 
 
 def make_serve_step(cfg: ModelConfig, sample: str = "greedy",
@@ -35,15 +48,14 @@ def make_serve_step(cfg: ModelConfig, sample: str = "greedy",
         logits, cache = decode_step(cfg, model, cache, tokens, unroll=unroll)
         last = logits[:, -1, :]
         if sample == "greedy":
-            nxt = torch.argmax(last, dim=-1)
+            nxt = _argmax(last)
         else:
             if generator is None:
                 raise ValueError("categorical sampling needs a generator")
             u = torch.rand(last.shape, generator=generator,
                            device=last.device)
             u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
-            nxt = torch.argmax(last / temperature - torch.log(-torch.log(u)),
-                               dim=-1)
+            nxt = _argmax(last / temperature - torch.log(-torch.log(u)))
         return nxt.to(torch.int32)[:, None], cache, logits
     return serve_step
 

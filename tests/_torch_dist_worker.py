@@ -21,10 +21,22 @@
    steps on 2x2; the losses, (rank 0) the parameters after them
    and the first MoE layer's input and router, and each rank's routing
    indices of that layer with its ``data`` coordinate.
-6. ``raises``: a 3x1 host mesh in a world of 4.
+6. ``attention``: attention whose heads ``model`` splits unevenly
+   (``models/layers.py``, the core one shard a rank), the cases of
+   :data:`ATTN_CASES`: ``gqa``, 8 query heads over 2 kv heads on 1x4
+   (kv heads replicated, query heads 2 a rank), and ``whisper``, 5 heads
+   on 2x2 (its cross attention too, on the frames :func:`frames` gives),
+   each take one AdamW step.  Then each of :data:`SERVE_CASES` serves:
+   the parallel logits of a :data:`PROMPT`-token prompt, and
+   ``make_serve_step`` through the prompt and :data:`DECODE_STEPS` more
+   tokens against a cache placed by the rules (logits and greedy
+   tokens), and its argmax of logits whose vocabulary ``model`` splits.
+   (Rank 0) the parameters after each step and the logits.
+7. ``raises``: a 3x1 host mesh in a world of 4.
 
 Each rank writes ``OUT_DIR/rank<r>.json``; rank 0 also writes
-``OUT_DIR/step_params.npz`` and ``OUT_DIR/moe_<case>.npz``.
+``OUT_DIR/step_params.npz``, ``OUT_DIR/moe_<case>.npz``,
+``OUT_DIR/attn_<case>.npz`` and ``OUT_DIR/<case>_decode.npz``.
 ``launcher``: ``repro_torch.launch.train --mesh 2x2`` as ``torchrun``
 starts it (``env://`` on ``PORT``), writing ``OUT_DIR/launcher<r>.json``.
 """
@@ -48,13 +60,16 @@ from repro_torch.checkpoint import (flatten_with_paths, restore_checkpoint,
 from repro_torch.configs import get_config
 from repro_torch.data import BatchPipeline, CompressedCorpus, synthetic
 from repro_torch.distributed import (NamedSharding, PartitionSpec,
-                                     default_rules, distribute_lm,
+                                     cache_shardings, default_rules,
+                                     distribute_lm,
                                      elastic_pipeline, reshard_tree,
                                      spec_for)
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import moe as tmoe
 from repro_torch.models import partitioning as tpart
+from repro_torch.serving import make_serve_step
+from repro_torch.serving.decode import _argmax as serve_argmax
 from repro_torch.models import transformer as ttransformer
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
@@ -73,6 +88,48 @@ MOE_CASES = {
     "jamba": ("jamba_v01_52b", {"num_layers": 8}),
 }
 
+# attention cases: (arch, overrides of ``reduced``, mesh (data, model))
+ATTN_CASES = {
+    "gqa": ("yi_9b", dict(dtype="float32", num_layers=2, d_model=32,
+                          num_heads=8, num_kv_heads=2, head_dim=8, d_ff=64,
+                          vocab_size=400), (1, 4)),
+    "whisper": ("whisper_large_v3", dict(dtype="float32", d_model=40,
+                                         num_heads=5, num_kv_heads=5,
+                                         head_dim=8, d_ff=64,
+                                         vocab_size=400), (2, 2)),
+}
+PROMPT, DECODE_STEPS, DECODE_BATCH = 4, 3, 2
+# serving cases: ``gqa`` on 1x4 (its cache's sequence split over
+# ``model``), and ``jamba`` on 2x2 (rows over ``data``; kv heads and the
+# mamba state's heads over ``model``)
+SERVE_CASES = ("gqa", "jamba")
+
+
+def attn_cfg(case):
+    arch, over, _ = ATTN_CASES[case]
+    return tm.reduced(get_config(arch), **over)
+
+
+def serve_cfg(case):
+    """(config, mesh (data, model)) of a serving case."""
+    if case == "gqa":
+        return attn_cfg("gqa"), ATTN_CASES["gqa"][2]
+    arch, over = MOE_CASES[case]
+    return tm.reduced(get_config(arch), **MOE_WIDTHS, **over), (2, 2)
+
+
+def frames(cfg):
+    """Whisper's stub frame embeddings for every step's global batch."""
+    rng = np.random.default_rng(5)
+    return rng.normal(size=(GLOBAL_BATCH, cfg.encoder_seq, cfg.d_model)
+                      ).astype(np.float32)
+
+
+def decode_tokens():
+    """The GQA decode's tokens: the prompt, then the decoded ones."""
+    rng = np.random.default_rng(6)
+    return rng.integers(0, 400, (DECODE_BATCH, PROMPT + DECODE_STEPS))
+
 
 def tiny():
     return tm.reduced(get_config("yi_9b"), dtype="float32", num_layers=2,
@@ -90,17 +147,20 @@ def model_on(cfg, mesh):
     return distribute_lm(model, mesh, default_rules(mesh))
 
 
-def batch_on(cc, mesh, step):
+def batch_on(cc, mesh, step, extra=None):
     """Step ``step``'s global batch as DTensors: this rank reads the rows
-    of its ``data`` coordinate."""
-    d = mesh.shape[0]
+    of its ``data`` coordinate (of ``extra``, the global frames, too)."""
+    d, c = mesh.shape[0], mesh.get_coordinate()[0]
     pl = elastic_pipeline(cc, global_batch=GLOBAL_BATCH, seq_len=SEQ,
-                          seed=0, resume_step=step,
-                          shard=mesh.get_coordinate()[0], num_shards=d)
+                          seed=0, resume_step=step, shard=c, num_shards=d)
     x, y = pl.batch_at(step)
+    rows = {"tokens": x, "labels": y}
+    if extra is not None:
+        n = GLOBAL_BATCH // d
+        rows["extra_embeds"] = extra[c * n:(c + 1) * n]
     return {k: DTensor.from_local(torch.from_numpy(v), mesh,
                                   (Shard(0), Replicate()), run_check=False)
-            for k, v in (("tokens", x), ("labels", y))}
+            for k, v in rows.items()}
 
 
 def full_params(model):
@@ -301,6 +361,75 @@ def scenario_moe(cc, out, rank):
         tmoe._router_probs, tmoe._plan = real_probs, real_plan
 
 
+def scenario_attention(cc, out, rank):
+    for case, (_, _, (d, m)) in ATTN_CASES.items():
+        cfg = attn_cfg(case)
+        mesh = tmesh.make_host_mesh(model=m, data=d, device_type="cpu")
+        model = model_on(cfg, mesh)
+        extra = frames(cfg) if cfg.family == "encdec" else None
+        opt = tt.AdamW(lr=LR)
+        step = tt.make_train_step(cfg, opt)
+        model, _, met = step(model, opt.init(tm.lm_to_params(model)),
+                             batch_on(cc, mesh, 0, extra))
+        out[f"attn_{case}"] = {
+            "loss": float(met["loss"]),
+            "wq_placements": str(model.layers[0].attn.wq.placements),
+            "wk_placements": str(model.layers[0].attn.wk.placements)}
+        params = full_params(model)
+        if rank == 0:
+            np.savez(os.path.join(out["dir"], f"attn_{case}.npz"), **params)
+    for case in SERVE_CASES:
+        serve_case(case, out, rank)
+
+
+def serve_case(case, out, rank):
+    """A config of :data:`SERVE_CASES` serves on its mesh: the parallel
+    logits of the prompt, then ``make_serve_step`` token by token."""
+    cfg, (d, m) = serve_cfg(case)
+    mesh = tmesh.make_host_mesh(model=m, data=d, device_type="cpu")
+    model = model_on(cfg, mesh)
+    toks = torch.from_numpy(decode_tokens())
+    rep = (Replicate(), Replicate())
+    with torch.no_grad():
+        full, _ = tm.apply_lm(cfg, model, DTensor.from_local(
+            toks[:, :PROMPT], mesh, rep, run_check=False))
+        cache = tm.init_cache(cfg, DECODE_BATCH, PROMPT + DECODE_STEPS + 1,
+                              device="cpu")
+        shardings = cache_shardings(cfg, cache, mesh, default_rules(mesh))
+        cache = map_leaves(cache, shardings)
+        out[f"{case}_cache_placements"] = [
+            str(v.placements) for v in cache["layers"][0].values()]
+        serve = make_serve_step(cfg)
+        steps, greedy = [], []
+        for t in range(PROMPT + DECODE_STEPS):
+            nxt, cache, logits = serve(model, cache, DTensor.from_local(
+                toks[:, t:t + 1], mesh, rep, run_check=False))
+            steps.append(logits.full_tensor()[:, 0].numpy())
+            greedy.append(nxt.full_tensor()[:, 0].tolist())
+        out[f"{case}_greedy"] = greedy
+        split = distribute_tensor(logits.full_tensor()[:, 0], mesh,
+                                  (Replicate(), Shard(1)))
+        out[f"{case}_argmax_over_a_split_vocabulary"] = torch.equal(
+            serve_argmax(split).full_tensor(),
+            torch.argmax(split.full_tensor(), dim=-1))
+    parallel = full.full_tensor().numpy()   # a collective: every rank
+    if rank == 0:
+        np.savez(os.path.join(out["dir"], f"{case}_decode.npz"),
+                 parallel=parallel, steps=np.stack(steps))
+
+
+def map_leaves(tree, shardings):
+    """The cache ``tree`` with each tensor distributed by its sharding."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_leaves(v, s) for v, s in zip(tree, shardings)]
+    if isinstance(tree, torch.Tensor):
+        return distribute_tensor(tree, shardings.mesh,
+                                 shardings.placements)
+    return tree
+
+
 def scenario_raises(out):
     try:
         tmesh.make_host_mesh(model=1, data=3, device_type="cpu")
@@ -333,6 +462,7 @@ def main():
         scenario_policy(cfg, cc, out, rank)
         scenario_compress(out)
         scenario_moe(cc, out, rank)
+        scenario_attention(cc, out, rank)
         scenario_raises(out)
         dist.destroy_process_group()
         name = f"rank{rank}.json"

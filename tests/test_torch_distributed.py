@@ -21,6 +21,7 @@ computed; a rendezvous file under the test's temporary directory and a
 free port keep parallel test workers apart.
 """
 
+import functools
 import json
 import os
 import socket
@@ -49,7 +50,9 @@ from repro_torch.distributed.pipeline import gpipe, make_pp_mesh
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import partitioning as tpart
-from _torch_dist_worker import MOE_CASES, MOE_STEPS, MOE_WIDTHS
+from _torch_dist_worker import (ATTN_CASES, DECODE_BATCH, DECODE_STEPS,
+                                MOE_CASES, MOE_STEPS, MOE_WIDTHS, PROMPT,
+                                SERVE_CASES, decode_tokens, frames)
 
 torch.set_num_threads(1)
 
@@ -58,6 +61,7 @@ WORLD = 4
 LOSS_TOL = 1e-4          # tests/_multidevice_worker.py:63
 PARAM_TOL = 5e-3         # tests/_multidevice_worker.py:67
 ELASTIC_RTOL = 1e-4
+LM_TOL = 1e-4            # logits: LM_TOL * max(1, max|jax|), test_torch_decode
 POLICY_TOL = 1e-5
 GPIPE_TOL = 1e-5
 GLOBAL_BATCH, SEQ, LR, STEPS = 8, 16, 1e-2, 6
@@ -98,6 +102,12 @@ def ranks(tmp_path_factory):
             done["params"] = dict(np.load(out / "step_params.npz"))
             for case in MOE_CASES:
                 done[f"moe_{case}"] = dict(np.load(out / f"moe_{case}.npz"))
+            for case in ATTN_CASES:
+                done[f"attn_{case}"] = dict(np.load(out /
+                                                    f"attn_{case}.npz"))
+            for case in SERVE_CASES:
+                done[f"{case}_decode"] = dict(np.load(
+                    out / f"{case}_decode.npz"))
         return done
     yield results
     for p in procs:
@@ -113,10 +123,11 @@ def _tiny():
             tm.reduced(get_config("yi_9b"), **over))
 
 
-def _jax_train(jcfg, tcfg, steps: int):
+def _jax_train(jcfg, tcfg, steps: int, extra=None):
     """The JAX package's unsharded ``steps`` from the port's seed-0
-    weights on corpus D's batches: (losses, parameters after step 0,
-    parameters after the last step)."""
+    weights on corpus D's batches (with frame embeddings ``extra``):
+    (losses, parameters after step 0, parameters after the last
+    step)."""
     init = tm.lm_to_params(tm.init_lm(tcfg, torch.Generator().manual_seed(0),
                                       device="cpu"))
     params = jax.tree.map(lambda t: jnp.asarray(t.numpy()), init)
@@ -129,8 +140,10 @@ def _jax_train(jcfg, tcfg, steps: int):
     losses, kept = [], []
     for s in range(steps):
         x, y = pl.batch_at(s)
-        params, state, m = step(params, state, {"tokens": jnp.asarray(x),
-                                                "labels": jnp.asarray(y)})
+        batch = {"tokens": jnp.asarray(x), "labels": jnp.asarray(y)}
+        if extra is not None:
+            batch["extra_embeds"] = jnp.asarray(extra)
+        params, state, m = step(params, state, batch)
         losses.append(float(m["loss"]))
         if s in (0, steps - 1):
             kept.append({k: np.asarray(v) for k, v in flatten_with_paths(
@@ -149,11 +162,48 @@ def jax_moe(ranks):
     return out
 
 
+def _attn_cfgs(case):
+    arch, over, _ = ATTN_CASES[case]
+    return (jm.reduced(jconfigs.get_config(arch), **over),
+            tm.reduced(get_config(arch), **over))
+
+
 @pytest.fixture(scope="module")
-def jax_run(ranks, jax_moe):
+def jax_attn(ranks):
+    """The JAX package's unsharded step 0 of each attention case
+    (loss, parameters after it), and each serving case's parallel logits
+    of the prompt and ``decode_step`` logits token by token."""
+    out = {}
+    for case in ATTN_CASES:
+        jcfg, tcfg = _attn_cfgs(case)
+        extra = frames(tcfg) if tcfg.family == "encdec" else None
+        losses, first, _ = _jax_train(jcfg, tcfg, 1, extra)
+        out[case] = (losses[0], first)
+    toks = decode_tokens()
+    for case in SERVE_CASES:
+        jcfg, tcfg = (_attn_cfgs if case == "gqa" else _moe_cfgs)(case)
+        params = jax.tree.map(lambda t: jnp.asarray(t.numpy()),
+                              tm.lm_to_params(tm.init_lm(
+                                  tcfg, torch.Generator().manual_seed(0),
+                                  device="cpu")))
+        parallel, _ = jm.apply_lm(jcfg, params,
+                                  jnp.asarray(toks[:, :PROMPT]))
+        cache = jm.init_cache(jcfg, DECODE_BATCH, PROMPT + DECODE_STEPS + 1)
+        step = jax.jit(functools.partial(jm.decode_step, jcfg))
+        steps = []
+        for t in range(PROMPT + DECODE_STEPS):
+            lg, cache = step(params, cache, jnp.asarray(toks[:, t:t + 1]))
+            steps.append(np.asarray(lg)[:, 0])
+        out[f"{case}_decode"] = (np.asarray(parallel), np.stack(steps))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_run(ranks, jax_moe, jax_attn):
     """The JAX package's unsharded steps 0-5 of the tiny dense config:
-    (losses, parameters after step 0).  With it, the MoE references:
-    both are computed while the ranks run, before the first wait."""
+    (losses, parameters after step 0).  With it, the MoE and attention
+    references: all are computed while the ranks run, before the first
+    wait."""
     losses, first, _ = _jax_train(*_tiny(), STEPS)
     return losses, first
 
@@ -288,6 +338,58 @@ def test_moe_step_on_a_mesh_matches_the_jax_unsharded_step(case, ranks,
     np.testing.assert_array_equal(
         np.concatenate([np.asarray(idx[c]) for c in sorted(idx)]),
         np.asarray(jidx))
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_attention_step_on_a_mesh_matches_the_jax_unsharded_step(
+        case, ranks, jax_attn):
+    """Attention whose heads ``model`` splits unevenly, its core one shard
+    a rank (``models/layers.py``): ``gqa``'s 8 query heads split 2 a rank
+    over 1x4 while its 2 kv heads stay replicated; ``whisper``'s 5 heads
+    (self and cross attention) on 2x2, which 2 does not divide.  One
+    AdamW step within the dense bounds of the JAX package's unsharded
+    step."""
+    loss, want = jax_attn[case]
+    res = ranks()
+    wq = {"gqa": "(Replicate(), Shard(dim=1))",
+          "whisper": "(Shard(dim=0), Replicate())"}[case]
+    for r in res["ranks"]:
+        got = r[f"attn_{case}"]
+        assert abs(got["loss"] - loss) < LOSS_TOL, (got["loss"], loss)
+        assert got["wq_placements"] == wq
+        assert got["wk_placements"].endswith("Replicate())")
+    saved = res[f"attn_{case}"]
+    assert set(saved) == set(want)
+    d = max(float(np.abs(saved[k] - want[k]).max()) for k in want)
+    assert d < PARAM_TOL, d
+
+
+@pytest.mark.parametrize("case", SERVE_CASES)
+def test_serving_on_a_mesh_matches_jax(case, ranks, jax_attn):
+    """``gqa`` on 1x4, its cache's sequence split over ``model`` (2 kv
+    heads do not divide 4), and ``jamba`` on 2x2 (rows over ``data``; kv
+    heads and the mamba state's heads over ``model``) serve: the parallel
+    logits of the prompt and ``make_serve_step``'s logits through the
+    prompt and three more tokens, each within 1e-4 of scale of the JAX
+    package's; its greedy tokens are the argmax of the JAX package's
+    logits, and its argmax of logits whose vocabulary is split over
+    ``model`` that of the whole logits."""
+    parallel, steps = jax_attn[f"{case}_decode"]
+    got = ranks()[f"{case}_decode"]
+    split = {"gqa": ["(Replicate(), Shard(dim=2))"] * 2,
+             # layer 0 is a mamba layer: its state's heads, its conv
+             # tail's channels
+             "jamba": ["(Shard(dim=1), Shard(dim=2))",
+                       "(Shard(dim=1), Shard(dim=3))"]}[case]
+    for r in ranks()["ranks"]:
+        assert r[f"{case}_cache_placements"] == split
+        assert r[f"{case}_argmax_over_a_split_vocabulary"]
+        assert np.array_equal(np.asarray(r[f"{case}_greedy"]),
+                              steps.argmax(-1))
+    for g, w in ((got["parallel"], parallel), (got["steps"], steps)):
+        assert g.shape == w.shape
+        err = float(np.abs(g - w).max()) / max(1.0, float(np.abs(w).max()))
+        assert err <= LM_TOL, err
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-v0.1-52b"])

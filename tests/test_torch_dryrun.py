@@ -210,6 +210,93 @@ def test_flops_are_per_rank():
                                           else (64, 256))
 
 
+# (mesh (data, model), kv heads, q placement on model): query heads split
+# 2 a rank with kv heads replicated (4 does not divide 2) or following
+# them (4 does), rows and heads split on 2x2, the query sequence split
+ATTN_SPLITS = {
+    "heads_kv_replicated": ((1, 4), 2, Shard(2)),
+    "heads_kv_follow": ((1, 4), 4, Shard(2)),
+    "rows_and_heads": ((2, 2), 2, Shard(2)),
+    "sequence": ((1, 4), 2, Shard(1)),
+}
+
+
+@pytest.mark.parametrize("split", ATTN_SPLITS)
+def test_attention_core_flops_are_per_rank(split):
+    """``gqa_attention`` of meta DTensors (8 query heads, causal) on a
+    fake world of 4 counts exactly 1/4 of the plain core's FLOPs on the
+    same global shapes a rank: each rank takes its rows and its query
+    heads or query rows, and no rank runs a replicated core."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.models.layers import gqa_attention
+    (d, m), hkv, q_model = ATTN_SPLITS[split]
+    B, S, H, D = 4, 32, 8, 16
+    with ha.count_ops() as plain:
+        gqa_attention(torch.empty(B, S, H, D, device="meta"),
+                      *(torch.empty(B, S, hkv, D, device="meta"),) * 2,
+                      causal=True)
+    with dryrun.fake_world(WORLD):
+        mesh = init_device_mesh("cpu", (d, m),
+                                mesh_dim_names=("data", "model"))
+        rows = Shard(0) if d > 1 else Replicate()
+
+        def placed(shape, model):
+            local = [n // (d if i == 0 and d > 1 else 1) //
+                     (m if model.is_shard(i) else 1)
+                     for i, n in enumerate(shape)]
+            return DTensor.from_local(torch.empty(local, device="meta"),
+                                      mesh, (rows, model))
+        q = placed((B, S, H, D), q_model)
+        kv = Shard(2) if hkv % m == 0 and q_model == Shard(2) else \
+            Replicate()
+        k, v = (placed((B, S, hkv, D), kv) for _ in range(2))
+        for _ in range(2):   # DTensor's shape inference is not counted
+            with ha.count_ops() as rec:
+                out = gqa_attention(q, k, v, causal=True)
+            assert rec.flops == plain.flops / WORLD
+            assert ha.op_histogram(rec)["dot"] == 2
+        assert tuple(out.placements) == (rows, q_model)
+        assert tuple(out.shape) == (B, S, H, D)
+
+
+# reduced cells that raised on a mesh (the arch, shape, mesh and
+# overrides of ``reduced``): heads the fake mesh's ``model`` dim does not
+# divide, a split vocabulary at the greedy argmax, a split mamba state
+MESH_CELLS = {
+    "yi-9b/decode_32k": ("yi-9b", "decode_32k", (1, 4), {}),
+    "stablelm-12b/decode_32k": ("stablelm-12b", "decode_32k", (1, 4), {}),
+    "whisper-large-v3/train_4k": ("whisper-large-v3", "train_4k", (2, 2),
+                                  dict(num_heads=5, num_kv_heads=5,
+                                       head_dim=8, d_model=40)),
+    # one stream: the cache's sequence over both dims, the logits'
+    # vocabulary over ``model`` at the greedy argmax
+    "jamba-v0.1-52b/long_500k": ("jamba-v0.1-52b", "long_500k", (2, 2),
+                                 dict(vocab_size=256)),
+    # one stream on 1x4: DTensor split the state update's head dim P
+    "mamba2-2.7b/long_500k": ("mamba2-2.7b", "long_500k", (1, 4), {}),
+}
+
+
+@pytest.mark.parametrize("cell", MESH_CELLS)
+def test_reduced_cells_record_ok(cell, tmp_path):
+    """Reduced cells where ``model`` divides the query heads but not the
+    kv heads (yi and stablelm decode: 4 over 2 on 1x4), or not the heads
+    at all (whisper train, self and cross attention: 5 on 2x2), record
+    ``ok``: the attention core runs one shard a rank.  So do jamba's
+    single-stream decode, whose greedy step takes the argmax of logits
+    with a split vocabulary, and mamba2's on 1x4, whose recurrence runs
+    one shard a rank (``models/ssm.py``)."""
+    arch, shape, mesh, over = MESH_CELLS[cell]
+    cfg = reduced(get_config(arch), **over)
+    with dryrun.fake_world(WORLD):
+        rec = dryrun.run_cell(arch, shape, "single", out_dir=str(tmp_path),
+                              cfg=cfg, mesh_shape=MeshShape(
+                                  mesh, ("data", "model")))
+    assert rec["status"] == "ok", rec.get("trace")
+    assert rec["cost"]["flops_per_device"] > 0
+    assert not dist.is_initialized()
+
+
 def test_hlo_profile_matches_jax():
     """``a @ a`` of a (64, 64) float32: the FLOPs of the JAX
     ``hlo_profile`` (XLA's cost analysis), no collective bytes, one dot."""

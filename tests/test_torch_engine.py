@@ -3,7 +3,9 @@
 * Host layer: the port's Sequitur and ``flatten`` produce every
   ``GrammarArrays`` field of the JAX package's for the same files —
   including the two inputs pinned in ``.hypothesis/patches/`` on which the
-  live digram index drops an overlapping run.
+  live digram index drops an overlapping run; the single-stream
+  ``compress`` gives the JAX package's grammar rule for rule on the same
+  inputs as one stream, and the symbol predicates agree.
 * The slice as a whole: grammars carried across with
   ``GrammarArrays.from_numpy`` give, for all six analytics under all six
   traversal methods (and both word-count backends), results bit-equal to
@@ -21,10 +23,12 @@ import torch
 from repro.core import batch as jbatch
 from repro.core.grammar import flatten as jflatten
 from repro.core.sequitur import IncrementalSequitur as JIncremental
+from repro.core.sequitur import compress as jcompress
 from repro.core.sequitur import compress_files as jcompress_files
 from repro_torch.core import batch as tbatch
 from repro_torch.core import (GrammarArrays, GrammarBatch,
-                              IncrementalSequitur, compress_files, flatten)
+                              IncrementalSequitur, compress, compress_files,
+                              flatten)
 
 from _oracle import assert_result_equal, oracle
 from _torch_inputs import corpus_files, ragged_corpora
@@ -112,6 +116,44 @@ def test_incremental_append_matches_jax(seeded_rng):
         _assert_same(got.rules, want.rules)
     g, _ = compress_files(files, 12)
     _assert_same(g.rules, inc.export().rules)
+
+
+@pytest.mark.parametrize("case", range(len(_host_cases())))
+def test_compress_matches_jax(case):
+    """Each host case's files as one stream (the pinned inputs among
+    them): the port's single-stream ``compress`` gives the JAX package's
+    grammar rule for rule, bit for bit."""
+    files, vocab = _host_cases()[case]
+    stream = np.concatenate(files)
+    got, want = compress(stream, vocab), jcompress(stream, vocab)
+    assert got.num_terminals == want.num_terminals == vocab
+    _assert_same(got.rules, want.rules)
+    np.testing.assert_array_equal(got.expand(), stream)
+
+
+@pytest.mark.parametrize("bad", [5, -1])
+def test_compress_raises_on_an_out_of_range_token(bad):
+    stream = np.array([0, 1, bad, 2])
+    with pytest.raises(ValueError) as want:
+        jcompress(stream, 5)
+    with pytest.raises(ValueError) as got:
+        compress(stream, 5)
+    assert str(got.value) == str(want.value) == f"token {bad} outside [0, 5)"
+
+
+@pytest.mark.parametrize("case", range(len(PINNED) + 2))
+def test_symbol_predicates_match_jax(case):
+    """``is_word``, ``is_splitter``, ``is_rule_sym`` and ``sym_rule`` of a
+    flattened grammar on every symbol of its bodies and the range around
+    them equal the JAX package's."""
+    files, vocab = _host_cases()[case]
+    want = _jax_grammar(files, vocab)
+    got = GrammarArrays.from_numpy(_fields(want))
+    top = want.num_terminals + want.num_rules
+    for sym in (want.body, np.arange(-1, top + 2)):
+        for name in ("is_word", "is_splitter", "is_rule_sym", "sym_rule"):
+            _assert_same(getattr(got, name)(sym), getattr(want, name)(sym),
+                         name)
 
 
 def test_from_numpy_round_trip_and_validation(packs):

@@ -195,6 +195,54 @@ def test_gqa_attention(case, seeded_rng):
     _close(got, want, OP_TOL, case)
 
 
+# (H, Hkv, model size): a rank's query heads are one kv group's part, whole
+# groups, or straddle groups; kv heads that ``model`` divides follow them
+HEAD_SPLITS = [(8, 2, 4), (8, 2, 2), (16, 2, 8), (12, 3, 4), (8, 8, 4)]
+
+
+SHARD_CASES = ["causal_full", "causal_chunked", "kv_len_chunked", "cross"]
+
+
+@pytest.mark.parametrize("split,case", [
+    (split, case) for split in HEAD_SPLITS for case in SHARD_CASES] + [
+    ("sequence", case) for case in SHARD_CASES
+    if ATTN_CASES[case][0] % 4 == 0])
+def test_attention_shards_match_jax(split, case, seeded_rng):
+    """The mesh path's local core, rank by rank on plain tensors: each
+    rank's query heads against its kv heads (``_local_kv`` where ``model``
+    does not divide the kv heads, a slice where it does), or its query
+    rows with their causal offset, assembled, equal the JAX package's
+    whole ``gqa_attention``."""
+    Sq, Skv, causal, off, kv_len, chunk = ATTN_CASES[case]
+    H, Hkv, m = (8, 2, 4) if split == "sequence" else split
+    B, D = 2, 8
+    q = seeded_rng.normal(size=(B, Sq, H, D)).astype(np.float32)
+    k = seeded_rng.normal(size=(B, Skv, Hkv, D)).astype(np.float32)
+    v = seeded_rng.normal(size=(B, Skv, Hkv, D)).astype(np.float32)
+    want = jlayers.gqa_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=causal, q_offset=off,
+                                 kv_len=kv_len, chunk=chunk)
+    parts = []
+    for r in range(m):
+        kl, vl = _t(k), _t(v)
+        if split == "sequence":
+            n = Sq // m
+            ql, o = _t(q[:, r * n:(r + 1) * n]), off + r * n
+        else:
+            h, o = H // m, off
+            ql = _t(q[:, :, r * h:(r + 1) * h])
+            if Hkv % m == 0:
+                kl, vl = (t[:, :, r * Hkv // m:(r + 1) * Hkv // m]
+                          for t in (kl, vl))
+            else:
+                kl, vl = (tlayers._local_kv(t, r * h, h, H // Hkv)
+                          for t in (kl, vl))
+        parts.append(tlayers._attention(ql, kl, vl, causal, o, kv_len,
+                                        chunk))
+    got = torch.cat(parts, dim=1 if split == "sequence" else 2)
+    _close(got, want, OP_TOL, case)
+
+
 @pytest.mark.parametrize("act", ["swiglu", "gelu"])
 def test_ffn(act, seeded_rng):
     """GELU is the tanh approximation (``jax.nn.gelu``'s default)."""
