@@ -325,7 +325,8 @@ class _MeshLayout:
     the mesh's ``model`` dim, and the batch rows (dim 0 of ``first``)
     over its other dims, ``Shard(0)`` when the batch divides them, else
     every row on every rank.  Plain operands become replicated
-    DTensors."""
+    DTensors.  The one place that decides row and ``model`` placements
+    for attention, the SSM scan and the MoE dispatch."""
 
     def __init__(self, first: torch.Tensor, *others: torch.Tensor):
         mesh = next(t.device_mesh for t in (first,) + others
@@ -338,6 +339,7 @@ class _MeshLayout:
                            if i != self.m_dim)
         self.rows = (Shard(0) if n_rows > 1
                      and first.shape[0] % n_rows == 0 else Replicate())
+        self.n_rows = n_rows if self.rows.is_shard() else 1
 
     def placed(self, t: torch.Tensor) -> DTensor:
         if isinstance(t, DTensor):
@@ -347,9 +349,11 @@ class _MeshLayout:
                                   run_check=False)
 
     def at(self, model, rows=None):
-        """Placements: ``model`` on the model dim, ``rows`` (the batch
-        rows' placement by default) on the others."""
-        rows = self.rows if rows is None else rows
+        """Placements: ``model`` on the model dim; on the others ``rows``
+        (the batch rows' placement by default) where the rows are split,
+        else ``Replicate()``."""
+        rows = (self.rows if rows is None else rows) \
+            if self.rows.is_shard() else Replicate()
         return tuple(model if i == self.m_dim else rows
                      for i in range(self.mesh.ndim))
 
@@ -368,7 +372,9 @@ class _MeshLayout:
 class _AttnLayout(_MeshLayout):
     """Attention's :class:`_MeshLayout`, with the ``model`` dim's split of
     the query read off ``q``'s placement: ``"heads"`` (``Shard(2)``),
-    ``"seq"`` (``Shard(1)``, the ``attn_q`` policy) or ``None``
+    ``"seq"`` (``Shard(1)``, the ``attn_q`` policy), ``"rows"``
+    (``Shard(0)``: a residual stream that no policy holds can reach a
+    layer with its batch rows split over ``model`` too) or ``None``
     (replicated); ``coord`` is the rank's index along a split."""
 
     def __init__(self, q: torch.Tensor, *others: torch.Tensor):
@@ -382,11 +388,15 @@ class _AttnLayout(_MeshLayout):
         elif self.m > 1 and q_model.is_shard(1) and \
                 q.shape[1] % self.m == 0:
             self.split = "seq"
+        elif self.m > 1 and q_model.is_shard(0) and \
+                q.shape[0] % (self.n_rows * self.m) == 0:
+            self.split = "rows"
         self.coord = (self.mesh.get_local_rank(self.m_dim) if self.split
                       else 0)
 
-    def by_split(self, heads, seq, neither):
-        return {"heads": heads, "seq": seq}.get(self.split, neither)
+    def by_split(self, heads, seq, rows, neither):
+        return {"heads": heads, "seq": seq, "rows": rows}.get(self.split,
+                                                              neither)
 
 
 def _attention_on_mesh(q, k, v, causal, q_offset, kv_len, chunk
@@ -404,16 +414,21 @@ def _attention_on_mesh(q, k, v, causal, q_offset, kv_len, chunk
     * query sequence (``Shard(1)``): its query rows against every key,
       the causal mask offset by the rows before them; k and v replicated
       on ``model``, their gradients partial;
+    * batch rows (``Shard(0)``): its rows over ``model`` as well, k and v
+      split alike;
     * neither: q is replicated on ``model``, every rank runs its rows.
 
     The output is placed as q is."""
     lay = _AttnLayout(q, k, v)
     H, Hkv = q.shape[2], k.shape[2]
     kv_follow = lay.split == "heads" and Hkv % lay.m == 0
-    q_pl = lay.at(lay.by_split(Shard(2), Shard(1), Replicate()))
-    kv_pl = lay.at(Shard(2) if kv_follow else Replicate())
-    kv_grad = lay.at(Shard(2) if kv_follow else
-                     Partial() if lay.split else Replicate())
+    q_pl = lay.at(lay.by_split(heads=Shard(2), seq=Shard(1), rows=Shard(0),
+                               neither=Replicate()))
+    kv_pl = lay.at(Shard(2) if kv_follow else
+                   Shard(0) if lay.split == "rows" else Replicate())
+    kv_grad = lay.at(lay.by_split(
+        heads=Shard(2) if kv_follow else Partial(), seq=Partial(),
+        rows=Shard(0), neither=Replicate()))
 
     def local(ql, kl, vl):
         off = q_offset
@@ -434,21 +449,25 @@ def attn_out(p, ctx: torch.Tensor) -> torch.Tensor:
     shard a rank (:class:`_AttnLayout`): ``ctx`` keeps the attention core's
     placement and ``wo`` is gathered, but for its heads on ``model`` when
     those of ``ctx`` are split there.  The output is a partial sum on
-    ``model`` (heads split), or split as the query sequence is and then
-    gathered: the layer's residual stream keeps its sequence whole, as
-    the FFN's matmul needs on torch 2.11, which cannot flatten (b, s)
-    with s split.  No gradient of ``ctx`` is split off head boundaries
-    (an unsplit head count ``model`` does not divide)."""
+    ``model`` (heads split), split as ``ctx``'s batch rows are, or split
+    as the query sequence is and then gathered: the layer's residual
+    stream keeps its sequence whole, as the FFN's matmul needs on torch
+    2.11, which cannot flatten (b, s) with s split.  No gradient of
+    ``ctx`` is split off head boundaries (an unsplit head count ``model``
+    does not divide)."""
     wo = p["wo"]
     if not isinstance(ctx, DTensor) and not isinstance(wo, DTensor):
         return torch.einsum("bshk,hkd->bsd", ctx, wo)
     lay = _AttnLayout(ctx, wo)
-    ctx_pl = lay.at(lay.by_split(Shard(2), Shard(1), Replicate()))
-    wo_pl = lay.at(lay.by_split(Shard(0), Replicate(), Replicate()),
+    ctx_pl = lay.at(lay.by_split(heads=Shard(2), seq=Shard(1), rows=Shard(0),
+                                 neither=Replicate()))
+    wo_pl = lay.at(Shard(0) if lay.split == "heads" else Replicate(),
                    Replicate())
-    wo_grad = lay.at(lay.by_split(Shard(0), Partial(), Replicate()),
-                     Partial() if lay.rows.is_shard() else Replicate())
-    out_pl = lay.at(lay.by_split(Partial(), Shard(1), Replicate()))
+    wo_grad = lay.at(lay.by_split(heads=Shard(0), seq=Partial(),
+                                  rows=Partial(), neither=Replicate()),
+                     Partial())
+    out_pl = lay.at(lay.by_split(heads=Partial(), seq=Shard(1),
+                                 rows=Shard(0), neither=Replicate()))
     y = lay.run(functools.partial(torch.einsum, "bshk,hkd->bsd"), (out_pl,),
                 (ctx_pl, wo_pl), (ctx_pl, wo_grad), ctx, wo)
     if lay.split == "seq":

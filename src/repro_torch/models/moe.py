@@ -31,7 +31,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels.ops import masked_top_k
 
-from .layers import _dtype, dense_init
+from .layers import _MeshLayout, _dtype, dense_init
 
 
 def init_moe(gen, cfg) -> Dict:
@@ -165,23 +165,10 @@ def _dispatch_on_mesh(p, x: DTensor, probs: DTensor, cfg):
     read; the counts are partial sums over the batch dims.  The router
     (``[d, E]`` float32) is gathered, so every ``model`` rank routes its
     rows over all E experts alike."""
-    from torch.distributed.tensor.experimental import local_map
-    mesh = x.device_mesh
-    names = mesh.mesh_dim_names or ()
-    m_dim = names.index("model") if "model" in names else None
-    b_dims = [i for i in range(mesh.ndim) if i != m_dim]
-    n_rows = math.prod(mesh.size(i) for i in b_dims)
-    split_rows = n_rows > 1 and x.shape[0] % n_rows == 0
-
-    def at(model, rows, other=Replicate()):
-        """Placements: ``model`` on the model dim, ``rows`` on the batch
-        dims (``other`` there when the rows are not split)."""
-        return tuple(model if i == m_dim else (rows if split_rows else other)
-                     for i in range(mesh.ndim))
-
+    lay = _MeshLayout(x)
     # the model dim's split, read off wi: experts, ffn, or none
-    wi_model = p["wi"].placements[m_dim] if m_dim is not None else \
-        Replicate()
+    wi_model = p["wi"].placements[lay.m_dim] if lay.m_dim is not None \
+        else Replicate()
     E = cfg.moe_num_experts
     if wi_model == Shard(0):
         w_model = {"wi": Shard(0), "wg": Shard(0), "wo": Shard(0)}
@@ -192,22 +179,17 @@ def _dispatch_on_mesh(p, x: DTensor, probs: DTensor, cfg):
     y_model = Replicate() if wi_model == Replicate() else Partial()
     first = 0
     if wi_model == Shard(0):
-        first = mesh.get_local_rank(m_dim) * (E // mesh.size(m_dim))
+        first = lay.mesh.get_local_rank(lay.m_dim) * (E // lay.m)
 
-    rows = at(Replicate(), Shard(0))
-    w_in = [at(w_model[k], Replicate()) for k in ("wi", "wg", "wo")]
-    args = [x.redistribute(mesh, rows), probs.redistribute(mesh, rows)]
-    args += [p[k].redistribute(mesh, pl)
-             for k, pl in zip(("wi", "wg", "wo"), w_in)]
-    fn = local_map(
+    rows = lay.at(Replicate())
+    w_in = [lay.at(w_model[k], Replicate()) for k in ("wi", "wg", "wo")]
+    return lay.run(
         functools.partial(_dispatch, cfg=cfg, first=first),
-        out_placements=(at(y_model, Shard(0)), at(Replicate(), Partial())),
-        in_placements=(rows, rows, *w_in),
-        in_grad_placements=(at(y_model, Shard(0)), at(y_model, Shard(0)),
-                            *(at(w_model[k], Partial())
-                              for k in ("wi", "wg", "wo"))),
-        device_mesh=mesh)
-    return fn(*args)
+        (lay.at(y_model), lay.at(Replicate(), Partial())),
+        (rows, rows, *w_in),
+        (lay.at(y_model), lay.at(y_model),
+         *(lay.at(w_model[k], Partial()) for k in ("wi", "wg", "wo"))),
+        x, probs, p["wi"], p["wg"], p["wo"])
 
 
 def apply_moe(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -24,9 +24,11 @@
 6. ``attention``: attention whose heads ``model`` splits unevenly
    (``models/layers.py``, the core one shard a rank), the cases of
    :data:`ATTN_CASES`: ``gqa``, 8 query heads over 2 kv heads on 1x4
-   (kv heads replicated, query heads 2 a rank), and ``whisper``, 5 heads
-   on 2x2 (its cross attention too, on the frames :func:`frames` gives),
-   each take one AdamW step.  Then each of :data:`SERVE_CASES` serves:
+   (kv heads replicated, query heads 2 a rank), ``gqa_seq``, the same
+   under the ``attn_q`` policy (the query's sequence split over
+   ``model``), and ``whisper``, 5 heads on 2x2 (its cross attention too,
+   on the frames :func:`frames` gives), each take one AdamW step; the
+   query's placements on ``model`` after ``constrain(q, "attn_q")``.  Then each of :data:`SERVE_CASES` serves:
    the parallel logits of a :data:`PROMPT`-token prompt, and
    ``make_serve_step`` through the prompt and :data:`DECODE_STEPS` more
    tokens against a cache placed by the rules (logits and greedy
@@ -88,15 +90,21 @@ MOE_CASES = {
     "jamba": ("jamba_v01_52b", {"num_layers": 8}),
 }
 
-# attention cases: (arch, overrides of ``reduced``, mesh (data, model))
+# attention cases: (arch, overrides of ``reduced``, mesh (data, model),
+# activation policy); ``gqa_seq`` is ``gqa`` under the ``attn_q`` policy
+# that ``launch/dryrun.make_activation_policy`` gives a train cell whose
+# kv heads ``model`` does not divide: the query's sequence split over
+# ``model``, its causal mask offset by each shard's first row
+GQA = ("yi_9b", dict(dtype="float32", num_layers=2, d_model=32, num_heads=8,
+                     num_kv_heads=2, head_dim=8, d_ff=64, vocab_size=400))
 ATTN_CASES = {
-    "gqa": ("yi_9b", dict(dtype="float32", num_layers=2, d_model=32,
-                          num_heads=8, num_kv_heads=2, head_dim=8, d_ff=64,
-                          vocab_size=400), (1, 4)),
+    "gqa": (*GQA, (1, 4), {}),
+    "gqa_seq": (*GQA, (1, 4),
+                {"attn_q": PartitionSpec("data", "model", None, None)}),
     "whisper": ("whisper_large_v3", dict(dtype="float32", d_model=40,
                                          num_heads=5, num_kv_heads=5,
                                          head_dim=8, d_ff=64,
-                                         vocab_size=400), (2, 2)),
+                                         vocab_size=400), (2, 2), {}),
 }
 PROMPT, DECODE_STEPS, DECODE_BATCH = 4, 3, 2
 # serving cases: ``gqa`` on 1x4 (its cache's sequence split over
@@ -106,7 +114,7 @@ SERVE_CASES = ("gqa", "jamba")
 
 
 def attn_cfg(case):
-    arch, over, _ = ATTN_CASES[case]
+    arch, over, _, _ = ATTN_CASES[case]
     return tm.reduced(get_config(arch), **over)
 
 
@@ -362,19 +370,33 @@ def scenario_moe(cc, out, rank):
 
 
 def scenario_attention(cc, out, rank):
-    for case, (_, _, (d, m)) in ATTN_CASES.items():
+    real = ttransformer.constrain
+    for case, (_, _, (d, m), policy) in ATTN_CASES.items():
         cfg = attn_cfg(case)
         mesh = tmesh.make_host_mesh(model=m, data=d, device_type="cpu")
         model = model_on(cfg, mesh)
         extra = frames(cfg) if cfg.family == "encdec" else None
         opt = tt.AdamW(lr=LR)
         step = tt.make_train_step(cfg, opt)
-        model, _, met = step(model, opt.init(tm.lm_to_params(model)),
-                             batch_on(cc, mesh, 0, extra))
+        seen = set()
+
+        def spy(x, kind):
+            y = real(x, kind)
+            if kind == "attn_q":   # the model dim's placement
+                seen.add(str(y.placements[-1]))
+            return y
+        ttransformer.constrain = spy
+        try:
+            with tpart.activation_policy(policy):
+                model, _, met = step(model, opt.init(tm.lm_to_params(model)),
+                                     batch_on(cc, mesh, 0, extra))
+        finally:
+            ttransformer.constrain = real
         out[f"attn_{case}"] = {
             "loss": float(met["loss"]),
             "wq_placements": str(model.layers[0].attn.wq.placements),
-            "wk_placements": str(model.layers[0].attn.wk.placements)}
+            "wk_placements": str(model.layers[0].attn.wk.placements),
+            "q_model_placements": sorted(seen)}
         params = full_params(model)
         if rank == 0:
             np.savez(os.path.join(out["dir"], f"attn_{case}.npz"), **params)
@@ -441,6 +463,10 @@ def main():
     mode, rank, world, rendezvous, out_dir = sys.argv[1:6]
     rank, world = int(rank), int(world)
     torch.set_num_threads(1)
+    # eight ranks beside the suite's other workers: run below them, on
+    # the cores they leave idle, so the ranks do not slow the suite's
+    # longest tests
+    os.nice(10)
     if mode == "launcher":
         # as torchrun starts it: env:// on the port ``rendezvous``
         os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),

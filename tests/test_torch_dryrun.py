@@ -212,12 +212,14 @@ def test_flops_are_per_rank():
 
 # (mesh (data, model), kv heads, q placement on model): query heads split
 # 2 a rank with kv heads replicated (4 does not divide 2) or following
-# them (4 does), rows and heads split on 2x2, the query sequence split
+# them (4 does), rows and heads split on 2x2, the query sequence split,
+# the batch rows split over ``model`` (a residual stream no policy holds)
 ATTN_SPLITS = {
     "heads_kv_replicated": ((1, 4), 2, Shard(2)),
     "heads_kv_follow": ((1, 4), 4, Shard(2)),
     "rows_and_heads": ((2, 2), 2, Shard(2)),
     "sequence": ((1, 4), 2, Shard(1)),
+    "rows_over_model": ((1, 4), 2, Shard(0)),
 }
 
 
@@ -248,7 +250,7 @@ def test_attention_core_flops_are_per_rank(split):
                                       mesh, (rows, model))
         q = placed((B, S, H, D), q_model)
         kv = Shard(2) if hkv % m == 0 and q_model == Shard(2) else \
-            Replicate()
+            q_model if q_model == Shard(0) else Replicate()
         k, v = (placed((B, S, hkv, D), kv) for _ in range(2))
         for _ in range(2):   # DTensor's shape inference is not counted
             with ha.count_ops() as rec:
@@ -265,9 +267,11 @@ def test_attention_core_flops_are_per_rank(split):
 MESH_CELLS = {
     "yi-9b/decode_32k": ("yi-9b", "decode_32k", (1, 4), {}),
     "stablelm-12b/decode_32k": ("stablelm-12b", "decode_32k", (1, 4), {}),
+    # one decoder and one encoder layer: self and cross attention
     "whisper-large-v3/train_4k": ("whisper-large-v3", "train_4k", (2, 2),
                                   dict(num_heads=5, num_kv_heads=5,
-                                       head_dim=8, d_model=40)),
+                                       head_dim=8, d_model=40, num_layers=1,
+                                       encoder_layers=1)),
     # one stream: the cache's sequence over both dims, the logits'
     # vocabulary over ``model`` at the greedy argmax
     "jamba-v0.1-52b/long_500k": ("jamba-v0.1-52b", "long_500k", (2, 2),

@@ -1,21 +1,19 @@
 """Run the port's dry-run grid one arch x shape x mesh a process, several
-processes at once, and summarise it.
+processes at once.
 
     PYTHONPATH=src python tools/dryrun_grid.py [--jobs N] [--out DIR]
         [--arch A ...] [--shape S ...] [--mesh single|multi|both]
-        [--summary FILE] [--timeout SECONDS]
 
 Each cell is ``python -m repro_torch.launch.dryrun --arch A --shape S
 --mesh M --out DIR --force`` in a process of its own (a cell holds its
 fake process group, DTensor's caches and the meta model for its whole
 run; a jamba or mamba2 cell takes minutes), ``--jobs`` of them at a time
-(default: the host's cores).  When all have ended, the summary JSON
-(default ``DIR/grid_summary.json``) holds the torch version, the host's
-core count and, per cell, its status, the record's per-rank numbers, its
-dominant roofline term (``launch/roofline.py``), its ops histogram and
-the wall seconds of its process; per arch, the sum of its cells' wall
-seconds.  A table of the cells is printed, then one line of counts.
-Exits 1 when a cell recorded an error or its process failed.
+(default: the host's cores), each writing its record into ``DIR``.  When
+all have ended, prints the roofline table of ``DIR``
+(``launch/roofline.py``), each failed cell's error, and one JSON line:
+the torch version, the counts by status, and the wall seconds of the
+grid, of each arch's processes summed and of each cell.  Exits 1 when a
+cell recorded an error or its process failed.
 """
 
 from __future__ import annotations
@@ -33,60 +31,48 @@ SRC = os.path.join(HERE, "..", "src")
 sys.path.insert(0, SRC)
 
 from repro_torch.configs import ALIASES  # noqa: E402
-from repro_torch.launch.roofline import analyze  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.models.config import LM_SHAPES  # noqa: E402
 
+CELL_TIMEOUT_S = 3000   # a cell's process; the longest took ~20 min
 
-def run_cell(arch: str, shape: str, mesh: str, out: str,
-             timeout: float) -> dict:
+
+def run_cell(arch: str, shape: str, mesh: str, out: str) -> dict:
+    """One cell in its own process: its status (``"no record"`` when the
+    process wrote none), wall seconds and, failing, the error."""
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH",
                                                             ""))
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
            arch, "--shape", shape, "--mesh", mesh, "--out", out, "--force"]
+    path = os.path.join(out, f"{ALIASES.get(arch, arch)}__{shape}__{mesh}"
+                        ".json")
+    if os.path.exists(path):
+        os.remove(path)
     t0 = time.time()
     try:
         proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
-                              timeout=timeout)
-        rc, tail = proc.returncode, (proc.stdout + proc.stderr)[-1500:]
+                              timeout=CELL_TIMEOUT_S)
+        tail = (proc.stdout + proc.stderr)[-1500:]
     except subprocess.TimeoutExpired:
-        rc, tail = None, f"timed out after {timeout} s"
-    wall = time.time() - t0
-    name = f"{ALIASES.get(arch, arch)}__{shape}__{mesh}"
-    path = os.path.join(out, name + ".json")
-    cell = {"arch": arch, "shape": shape, "mesh": mesh, "rc": rc,
-            "wall_s": wall}
-    if not os.path.exists(path) or rc is None:
-        return dict(cell, status="no record", tail=tail)
+        tail = f"timed out after {CELL_TIMEOUT_S} s"
+    cell = {"cell": f"{arch}/{shape}/{mesh}", "arch": arch,
+            "wall_s": time.time() - t0}
+    if not os.path.exists(path):
+        return dict(cell, status="no record", error=tail)
     with open(path) as f:
         rec = json.load(f)
-    cell["status"] = rec["status"]
-    if rec["status"] == "skipped":
-        cell["reason"] = rec["reason"]
-    elif rec["status"] == "error":
-        cell["error"] = rec["error"][:500]
-    else:
-        a = analyze(rec)
-        cell.update(
-            argument_gib=rec["memory"]["argument_bytes"] / 2**30,
-            gflop_per_dev=rec["cost"]["flops_per_device"] / 1e9,
-            gb_per_dev=rec["cost"]["bytes_per_device"] / 1e9,
-            coll_mb_per_dev=rec["collective_bytes_per_device"] / 1e6,
-            dominant=a["dominant"], step_s=rec["compile_s"],
-            ops=rec["ops"])
-    return cell
+    return dict(cell, status=rec["status"], error=rec.get("error", ""))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--jobs", type=int, default=os.cpu_count() or 1)
-    ap.add_argument("--out", default=os.path.join(HERE, "..", "dryrun_out"))
+    ap.add_argument("--out", default=roofline.DRYRUN_DIR)
     ap.add_argument("--arch", nargs="*", default=list(ALIASES))
     ap.add_argument("--shape", nargs="*", default=list(LM_SHAPES))
     ap.add_argument("--mesh", default="both",
                     choices=["single", "multi", "both"])
-    ap.add_argument("--summary", default=None)
-    ap.add_argument("--timeout", type=float, default=3000.0)
     args = ap.parse_args(argv)
     import torch
     os.makedirs(args.out, exist_ok=True)
@@ -95,39 +81,21 @@ def main(argv=None) -> int:
              for s in args.shape]
     t0 = time.time()
     with cf.ThreadPoolExecutor(args.jobs) as pool:
-        done = list(pool.map(lambda c: run_cell(*c, args.out, args.timeout),
-                             cells))
-    per_arch = {}
-    for c in done:
-        per_arch[c["arch"]] = per_arch.get(c["arch"], 0.0) + c["wall_s"]
-    summary = {"torch": torch.__version__, "cores": os.cpu_count(),
-               "jobs": args.jobs, "wall_s": time.time() - t0,
-               "arch_wall_s": per_arch, "cells": done}
-    path = args.summary or os.path.join(args.out, "grid_summary.json")
-    with open(path, "w") as f:
-        json.dump(summary, f, indent=1)
-    print("| cell | status | GiB/dev | GFLOP/dev | coll MB/dev | dominant "
-          "| wall s |")
-    print("| --- | --- | --- | --- | --- | --- | --- |")
-    for c in done:
-        name = f"{c['arch']}/{c['shape']}/{c['mesh']}"
-        if c["status"] == "ok":
-            print(f"| {name} | ok | {c['argument_gib']:.4f} | "
-                  f"{c['gflop_per_dev']:.1f} | {c['coll_mb_per_dev']:.1f} | "
-                  f"{c['dominant']} | {c['wall_s']:.1f} |")
-        else:
-            why = c.get("reason") or c.get("error") or c.get("tail", "")
-            print(f"| {name} | {c['status']} | {why[:80]} | | | | "
-                  f"{c['wall_s']:.1f} |")
-    counts = {}
+        done = list(pool.map(lambda c: run_cell(*c, args.out), cells))
+    wall = time.time() - t0
+    print(roofline.render(roofline.load_all(args.out)))
+    counts, per_arch = {}, {}
     for c in done:
         counts[c["status"]] = counts.get(c["status"], 0) + 1
-    print(json.dumps({"torch": torch.__version__, "cells": len(done),
-                      "counts": counts, "wall_s": round(summary["wall_s"], 1),
-                      "arch_wall_s": {k: round(v, 1)
-                                      for k, v in per_arch.items()}}))
-    bad = [c for c in done if c["status"] not in ("ok", "skipped")]
-    return 1 if bad else 0
+        per_arch[c["arch"]] = per_arch.get(c["arch"], 0.0) + c["wall_s"]
+        if c["status"] not in ("ok", "skipped"):
+            print(f"{c['cell']}: {c['status']}: {c['error'][-500:]}")
+    print(json.dumps({
+        "torch": torch.__version__, "cells": len(done), "counts": counts,
+        "jobs": args.jobs, "cores": os.cpu_count(), "wall_s": round(wall, 1),
+        "arch_wall_s": {k: round(v, 1) for k, v in per_arch.items()},
+        "cell_wall_s": {c["cell"]: round(c["wall_s"], 1) for c in done}}))
+    return 0 if set(counts) <= {"ok", "skipped"} else 1
 
 
 if __name__ == "__main__":

@@ -9,8 +9,9 @@ process group (256 ranks for ``single``, 512 for ``multi``), with each
 FLOP formula of ``utils/hlo_analysis.py`` wrapped to add its count under
 "<op> <file>:<line>", the innermost frame of ``src/repro_torch`` that ran
 it (a backward pass shows as the line that called ``backward``).  Prints
-the record's status and FLOPs, then one JSON object of the ``--top``
-lines in GFLOP a rank.
+the record's status and FLOPs, then two JSON objects of the ``--top``
+lines in GFLOP a rank: by line, and by line and the op's local operand
+shapes.
 """
 
 import argparse
@@ -37,7 +38,7 @@ def main(argv=None) -> None:
     ap.add_argument("--mesh", default="single", choices=["single", "multi"])
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args(argv)
-    tally = collections.Counter()
+    tally, by_shape = collections.Counter(), collections.Counter()
 
     def wrap(packet, formula):
         def counted(*a, **k):
@@ -48,6 +49,9 @@ def main(argv=None) -> None:
             where = (f"{os.path.basename(ours[-1].filename)}:"
                      f"{ours[-1].lineno}" if ours else "?")
             tally[f"{packet} {where}"] += flops
+            shapes = " @ ".join(str(tuple(t.shape)) for t in a
+                                if isinstance(t, torch.Tensor))
+            by_shape[f"{packet} {where} {shapes}"] += flops
             return flops
         return counted
 
@@ -61,8 +65,9 @@ def main(argv=None) -> None:
           f"{torch.__version__}), "
           f"{rec.get('cost', {}).get('flops_per_device', 0) / 1e9:.1f} "
           f"GFLOP/dev")
-    print(json.dumps({k: round(v / 1e9, 1)
-                      for k, v in tally.most_common(args.top)}))
+    for t in (tally, by_shape):
+        print(json.dumps({k: round(v / 1e9, 1)
+                          for k, v in t.most_common(args.top)}))
 
 
 if __name__ == "__main__":
