@@ -301,6 +301,15 @@ DRYRUN_CELLS = (("qwen2-0.5b", "train_4k"), ("yi-9b", "decode_32k"),
                 ("whisper-large-v3", "train_4k"),
                 ("qwen2-moe-a2.7b", "train_4k"))
 DRYRUN_MESH, DRYRUN_RANKS = "single", 256
+# then one layer of these cells (arch, shape, mesh) at full width on its
+# fake group: the blocks that run one shard a rank, forward and backward,
+# each within DRYRUN_SHARE_TOL of the plain block's FLOPs over the ranks
+# that share them (the MoE's shared expert and whole layer; mamba's in
+# and out projections on the 512-rank mesh, where torch 2.11 and 2.13
+# both gave every ``model`` rank their whole weight and input gradients)
+DRYRUN_SHARE_CELLS = (("qwen2-moe-a2.7b", "train_4k", "single"),
+                      ("mamba2-2.7b", "train_4k", "multi"))
+DRYRUN_SHARE_TOL = 0.01
 
 TIMING_REPS = 20
 TIMING_WARMUP = 3
@@ -2534,12 +2543,14 @@ def dryrun_phase(smi: str, cut=None) -> None:
     """Phase 12: ``run_cell`` of each of DRYRUN_CELLS at full width on a
     DRYRUN_RANKS-rank fake process group (meta tensors: the host's work
     only), each cell's status checked, and its roofline terms at the H100
-    constants.  ``cut``: a CPU rehearsal's smaller configs (each key a
-    config uses)."""
+    constants; then :func:`share_check` of each of DRYRUN_SHARE_CELLS.
+    ``cut``: a CPU rehearsal's smaller configs (each key a config
+    uses)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun, roofline
+    t_phase = time.perf_counter()
     for arch, shape in DRYRUN_CELLS:
         cfg = get_config(arch)
         cfg = dataclasses.replace(cfg, **{k: v for k, v in (cut or {}).items()
@@ -2571,6 +2582,124 @@ def dryrun_phase(smi: str, cut=None) -> None:
             f"{a['collective_s'] * 1e3:.5g} ms a step, {a['dominant']}-bound"
             f", useful {a['useful_flop_ratio']:.3f} (counted, not measured; "
             f"{smi})")
+    log(f"[dryrun] the {len(DRYRUN_CELLS)} cells: "
+        f"{time.perf_counter() - t_phase:.1f} s (host CPU)")
+    for arch, shape, mesh_kind in DRYRUN_SHARE_CELLS:
+        share_check(arch, shape, mesh_kind, smi, cut)
+
+
+def _fwd_bwd_flops(fn, params, x, loss):
+    """Per-rank FLOPs of ``fn(params, x)`` and of its backward from
+    ``loss`` of its (first) output."""
+    from repro_torch.utils import hlo_analysis as ha
+    with ha.count_ops() as fwd:
+        y = fn(params, x)
+    y = y[0] if isinstance(y, tuple) else y
+    with ha.count_ops() as bwd:
+        loss(y).backward()
+    return fwd.flops, bwd.flops
+
+
+def share_check(arch: str, shape: str, mesh_kind: str, smi: str,
+                cut=None) -> None:
+    """One layer of the cell (``arch``, ``shape``, ``mesh_kind``) on its
+    fake group, its parameters placed by the rules and its input as the
+    cell's activation policy places the residual stream, meta tensors at
+    full width: the per-rank GFLOP, forward and backward, of each block
+    that runs one shard a rank beside its split count, the plain block's
+    FLOPs on global meta tensors over the ranks that share them (every
+    rank; the MoE router only the batch rows' ranks).  Fails when they
+    differ by more than DRYRUN_SHARE_TOL."""
+    import dataclasses
+    import math
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import default_rules, param_shardings
+    from repro_torch.distributed.sharding import NamedSharding, mesh_axes
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import LM_SHAPES, moe, ssm
+    from repro_torch.models.layers import _dtype, apply_ffn, unbox
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, **{k: v for k, v in (cut or {}).items()
+                                      if getattr(cfg, k)})
+    spec = LM_SHAPES[shape]
+    shape_mesh = make_production_mesh(multi_pod=mesh_kind == "multi")
+    rules = default_rules(shape_mesh)
+    act = dryrun.make_activation_policy(cfg, shape, shape_mesh,
+                                        rules)["act_btd"]
+    sizes = mesh_axes(shape_mesh)
+    ranks = math.prod(sizes.values())
+    rows = ranks // sizes["model"]
+    dt = _dtype(cfg.dtype)
+    B, S, d = spec.global_batch, spec.seq_len, cfg.d_model
+    if cfg.moe_num_experts:
+        params, axes = unbox(moe.init_moe(None, cfg))
+        blocks = (("shared expert", d,
+                   lambda p, x: apply_ffn(p["shared"], x, "swiglu")),
+                  ("MoE layer (router, routed and shared experts)", d,
+                   lambda p, x: moe.apply_moe(p, x, cfg)))
+    else:
+        params, axes = unbox(ssm.init_mamba(None, cfg))
+        blocks = (("in_proj", d, lambda p, x: ssm._project(
+            x, p["in_proj"], "out")),
+                  ("out_proj", cfg.ssm_expand * d, lambda p, x: ssm._project(
+                      x, p["out_proj"], "in")))
+
+    def plain_meta(tree):
+        if isinstance(tree, dict):
+            return {k: plain_meta(v) for k, v in tree.items()}
+        return torch.empty(tree.shape, dtype=tree.dtype, device="meta",
+                           requires_grad=True)
+
+    def leaves(tree):
+        return ([t for v in tree.values() for t in leaves(v)]
+                if isinstance(tree, dict) else [tree])
+    t0 = time.perf_counter()
+    with dryrun.fake_world(ranks):
+        mesh = init_device_mesh("cpu", tuple(sizes.values()),
+                                mesh_dim_names=tuple(sizes))
+        for name, width, fn in blocks:
+            plain_p = plain_meta(params)
+            plain_x = torch.empty((B, S, width), dtype=dt, device="meta",
+                                  requires_grad=True)
+            plain = _fwd_bwd_flops(fn, plain_p, plain_x, lambda y: y.sum())
+            router = (0.0, 0.0)
+            if name.startswith("MoE"):
+                router = _fwd_bwd_flops(lambda p, x: moe._router_probs(p, x),
+                                        plain_p, plain_x, lambda y: y.sum())
+            tree = dryrun._place_tree(params, param_shardings(
+                axes, params, mesh, rules))
+            for t in leaves(tree):
+                t.requires_grad_()
+            x = dryrun._placed((B, S, width), dt, NamedSharding(mesh, act))
+            x.requires_grad_()
+
+            def loss(y):
+                return y.redistribute(mesh, [
+                    Replicate() if p.is_partial() else p
+                    for p in y.placements]).to_local().sum()
+            with implicit_replication():
+                got = _fwd_bwd_flops(fn, tree, x, loss)
+            split = [r / rows + (p - r) / ranks
+                     for p, r in zip(plain, router)]
+            log(f"[dryrun] {arch}/{shape}/{mesh_kind} one layer's {name} "
+                f"on {ranks} fake ranks (torch {torch.__version__}): "
+                f"forward {got[0] / 1e9:.1f} GFLOP/dev against the split "
+                f"count {split[0] / 1e9:.1f}, backward {got[1] / 1e9:.1f} "
+                f"against {split[1] / 1e9:.1f} (plain {plain[0] / 1e9:.1f} "
+                f"+ {plain[1] / 1e9:.1f} GFLOP; counted, not measured; "
+                f"{smi})")
+            for g, want, pass_ in zip(got, split, ("forward", "backward")):
+                check(want > 0 and abs(g - want) <= DRYRUN_SHARE_TOL * want,
+                      f"[dryrun] {arch}/{shape}/{mesh_kind} {name} {pass_}: "
+                      f"{g / 1e9:.1f} GFLOP/dev against a split count of "
+                      f"{want / 1e9:.1f}")
+    log(f"[dryrun] {arch}/{shape}/{mesh_kind} one layer's check: "
+        f"{time.perf_counter() - t0:.1f} s (host CPU)")
 
 
 def roofline_phase(dev, smi: str, cc, train_ms, cut=None,

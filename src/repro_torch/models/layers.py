@@ -160,11 +160,25 @@ def init_ffn(gen, d_model: int, d_ff: int, act: str, dtype) -> Dict:
 
 
 def apply_ffn(p, x: torch.Tensor, act: str) -> torch.Tensor:
+    """The SwiGLU (``wi``, ``wg``, ``wo``) or GELU (``wi``, ``bi``, ``wo``,
+    ``bo``) block.  On DTensors all but ``bo`` runs one shard a rank
+    (:func:`_ffn_on_mesh`)."""
+    second = p["wg"] if act == "swiglu" else p["bi"]
+    core = (_ffn_on_mesh if any(isinstance(t, DTensor) for t in (x, p["wi"]))
+            else _ffn_core)
+    y = core(act, x, p["wi"], second, p["wo"])
+    return y if act == "swiglu" else y + own_grad_placement(p["bo"])
+
+
+def _ffn_core(act: str, x: torch.Tensor, wi: torch.Tensor,
+              second: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """:func:`apply_ffn` before ``bo`` on plain tensors; ``second`` is
+    ``wg`` (SwiGLU) or ``bi`` (GELU)."""
     if act == "swiglu":
-        h = F.silu(x @ p["wg"]) * (x @ p["wi"])
-        return h @ p["wo"]
-    h = F.gelu((x @ p["wi"]) + p["bi"], approximate="tanh")
-    return h @ p["wo"] + p["bo"]
+        h = F.silu(x @ second) * (x @ wi)
+    else:
+        h = F.gelu((x @ wi) + second, approximate="tanh")
+    return h @ wo
 
 
 # ------------------------------------------------------------- attention --
@@ -199,23 +213,43 @@ def own_grad_placement(w: torch.Tensor) -> torch.Tensor:
 
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk", x, w)`` as a matmul over the flattened
-    heads x head_dim, unflattened.  On a mesh, DTensor may split that
-    flattened dim of the output (free when ``w``'s heads are replicated)
-    and of ``w``'s gradient over a mesh dim whose size the heads do not
-    divide; such a split falls off head boundaries and cannot view back
-    to heads.  So the output is gathered on that dim, and the flattened
-    weight's gradient is returned to its placement
-    (:func:`own_grad_placement`)."""
+    heads x head_dim, unflattened.  On DTensors whose ``model`` dim
+    divides the heads (or is 1), one shard a rank (``local_map``,
+    :class:`_MeshLayout`): a rank takes its batch rows (``x``'s
+    ``model`` split gathered) and its heads (``w``'s dim 1), the output
+    split on its heads dim, ``x``'s gradient a partial sum on ``model``
+    and ``w``'s split as ``w`` is, so no ``model`` rank projects another
+    rank's heads.  Where ``model`` does not divide the heads (the rules
+    then keep ``w`` whole on ``model``), DTensor's own strategy splits
+    the work (the query's sequence or the contraction), but it may split
+    the flattened dim of the output and of ``w``'s gradient off head
+    boundaries, which cannot view back to heads: so the output is
+    gathered on that dim and the flattened weight's gradient returned
+    to its placement (:func:`own_grad_placement`)."""
+    if not any(isinstance(t, DTensor) for t in (x, w)):
+        return _heads_core(x, w)
+    lay = _MeshLayout(x, w)
     H, hd = w.shape[1], w.shape[2]
+    if H % lay.m == 0:
+        w_model = Shard(1) if lay.m > 1 else Replicate()
+        return lay.run(_heads_core, (lay.at(Shard(2) if lay.m > 1
+                                            else Replicate()),),
+                       (lay.at(Replicate()), lay.at(w_model, Replicate())),
+                       (lay.at(Partial() if lay.m > 1 else Replicate()),
+                        lay.at(w_model, Partial())), x, w)
     y = x @ own_grad_placement(w.flatten(1))
-    if isinstance(y, DTensor):
-        last = y.ndim - 1
-        mesh = y.device_mesh
-        pl = tuple(Replicate() if p.is_shard(last) and H % mesh.size(i)
-                   else p for i, p in enumerate(y.placements))
-        if pl != tuple(y.placements):
-            y = y.redistribute(mesh, pl)
+    last = y.ndim - 1
+    mesh = y.device_mesh
+    pl = tuple(Replicate() if p.is_shard(last) and H % mesh.size(i)
+               else p for i, p in enumerate(y.placements))
+    if pl != tuple(y.placements):
+        y = y.redistribute(mesh, pl)
     return y.unflatten(-1, (H, hd))
+
+
+def _heads_core(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    H, hd = w.shape[1], w.shape[2]
+    return (x @ w.flatten(1)).unflatten(-1, (H, hd))
 
 
 def _qkv(p, x: torch.Tensor, cfg, kv_x: Optional[torch.Tensor] = None
@@ -326,7 +360,9 @@ class _MeshLayout:
     over its other dims, ``Shard(0)`` when the batch divides them, else
     every row on every rank.  Plain operands become replicated
     DTensors.  The one place that decides row and ``model`` placements
-    for attention, the SSM scan and the MoE dispatch."""
+    for every block of the model that runs on a mesh: the embedding
+    lookup, attention (projections, core, output), the FFN, the MoE
+    router and dispatch, mamba's projections and scan."""
 
     def __init__(self, first: torch.Tensor, *others: torch.Tensor):
         mesh = next(t.device_mesh for t in (first,) + others
@@ -367,6 +403,30 @@ class _MeshLayout:
         return local_map(fn, out_placements=outs, in_placements=ins,
                          in_grad_placements=grads,
                          device_mesh=self.mesh)(*args)
+
+
+def _ffn_on_mesh(act, x, wi, second, wo) -> torch.Tensor:
+    """:func:`_ffn_core` of DTensors, one shard a rank, by ``local_map``
+    (:class:`_MeshLayout`): a rank takes its batch rows (``x``'s ``model``
+    split gathered) and, where ``model`` divides the ``ffn`` dim, its
+    slice of that dim: ``wi``, ``wg`` and ``bi`` split on their ``ffn``
+    dim, ``wo`` on dim 0, all gathered on the other mesh dims.  The
+    output is then a partial sum on ``model``, as the routed experts'
+    is; elsewhere the weights are gathered and every rank runs its rows
+    whole.  Each weight's gradient is split as the weight is on
+    ``model`` and partial over the batch dims, then returns to the
+    weight's placement, so DTensor's strategies choose no layout of
+    these matmuls."""
+    lay = _MeshLayout(x, wi)
+    split = lay.m > 1 and wi.shape[-1] % lay.m == 0
+    w_model = ((Shard(1), Shard(second.ndim - 1), Shard(0)) if split
+               else (Replicate(),) * 3)
+    y_model = Partial() if split else Replicate()
+    return lay.run(
+        functools.partial(_ffn_core, act), (lay.at(y_model),),
+        (lay.at(Replicate()), *(lay.at(w, Replicate()) for w in w_model)),
+        (lay.at(y_model), *(lay.at(w, Partial()) for w in w_model)),
+        x, wi, second, wo)
 
 
 class _AttnLayout(_MeshLayout):

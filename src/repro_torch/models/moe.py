@@ -16,7 +16,9 @@ on its own tensors, in the EP layout: a rank routes the batch rows it
 holds over all E experts (the small float32 router gathered) and
 dispatches and computes only the pairs of the experts it holds, so
 ``y`` is a partial sum over ``model`` (:func:`_dispatch_on_mesh`).  The
-aux loss and the shared expert (TP over ``ffn``) are DTensor ops.
+router runs per rank as well (its batch rows, every expert), and so
+does the shared expert (``layers.apply_ffn``: TP over ``ffn``, a partial
+sum over ``model`` like ``y``).  The aux loss is DTensor ops.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels.ops import masked_top_k
 
-from .layers import _MeshLayout, _dtype, dense_init
+from .layers import _MeshLayout, _dtype, apply_ffn, dense_init
 
 
 def init_moe(gen, cfg) -> Dict:
@@ -73,7 +75,22 @@ def moe_routing(p, x: torch.Tensor, cfg):
 
 
 def _router_probs(p, x: torch.Tensor) -> torch.Tensor:
-    logits = torch.einsum("bsd,de->bse", x.float(), p["router"])
+    """The router's softmax ``[B, S, E]`` of ``x [B, S, d]``.  On DTensors
+    one shard a rank (``local_map``, :class:`_MeshLayout`): a rank routes
+    its batch rows (``x``'s ``model`` split gathered) with the whole
+    ``[d, E]`` float32 router, as the dispatch does, so ``probs`` comes
+    back split as the rows are and replicated on ``model``.  The
+    router's gradient is partial over the batch dims."""
+    if not any(isinstance(t, DTensor) for t in (x, p["router"])):
+        return _probs(x, p["router"])
+    lay = _MeshLayout(x, p["router"])
+    rows = lay.at(Replicate())
+    return lay.run(_probs, (rows,), (rows, lay.at(Replicate(), Replicate())),
+                   (rows, lay.at(Replicate(), Partial())), x, p["router"])
+
+
+def _probs(x: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
+    logits = torch.einsum("bsd,de->bse", x.float(), router)
     return torch.softmax(logits, dim=-1)
 
 
@@ -193,9 +210,10 @@ def _dispatch_on_mesh(p, x: DTensor, probs: DTensor, cfg):
 
 
 def apply_moe(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, d] -> (y, aux_loss).  On DTensors the routed experts run
-    one shard a rank (:func:`_dispatch_on_mesh`); the router, the aux
-    loss and the shared expert are DTensor ops."""
+    """x: [B, S, d] -> (y, aux_loss).  On DTensors the router, the routed
+    experts (:func:`_dispatch_on_mesh`) and the shared expert
+    (``layers.apply_ffn``) run one shard a rank; the aux loss is DTensor
+    ops."""
     B, S, _ = x.shape
     E, K = cfg.moe_num_experts, cfg.moe_top_k
     N = S * K
@@ -211,7 +229,5 @@ def apply_moe(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     aux = E * torch.sum(me * ce)
 
     if "shared" in p:
-        sh = p["shared"]
-        hs = F.silu(x @ sh["wg"]) * (x @ sh["wi"])
-        y = y + hs @ sh["wo"]
+        y = y + apply_ffn(p["shared"], x, "swiglu")
     return y, aux

@@ -13,7 +13,8 @@ triangle (which overflows) is then zeroed with ``where``, never by
 multiplying with a mask (``inf * 0`` is NaN).
 
 On DTensors the scan and the decode recurrence run one shard a rank
-(:func:`_heads_per_rank`): both treat every (batch row, head) apart.
+(:func:`_heads_per_rank`): both treat every (batch row, head) apart;
+so do the in and out projections (:func:`_project`).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from .layers import (Boxed, _MeshLayout, _dtype, dense_init, ones_init,
                      rms_norm, zeros_init)
@@ -94,7 +95,7 @@ def apply_mamba(p, x_in: torch.Tensor, cfg, chunk: int = 64
     di = cfg.ssm_expand * d
     H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
 
-    zxbcdt = x_in @ p["in_proj"]
+    zxbcdt = _project(x_in, p["in_proj"], "out")
     z, xs, Bv, Cv, dtv = _split_proj(cfg, zxbcdt)
     xbc = torch.cat([xs, Bv, Cv], dim=-1)
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
@@ -115,7 +116,34 @@ def apply_mamba(p, x_in: torch.Tensor, cfg, chunk: int = 64
     y = y + Xh.float() * p["D"][None, None, :, None]
     y = y.reshape(Bb, S, di)
     y = rms_norm(y.to(x_in.dtype) * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"]
+    return _project(y, p["out_proj"], "in")
+
+
+def _project(x: torch.Tensor, w: torch.Tensor, split: str) -> torch.Tensor:
+    """``x @ w``.  On DTensors whose ``model`` dim divides the split width,
+    one shard a rank (``local_map``, :class:`~.layers._MeshLayout`): the
+    in_proj (``split="out"``) takes ``w``'s columns over ``model`` and
+    gathers the split output; the out_proj (``split="in"``) takes ``x``'s
+    last dim and ``w``'s rows over ``model`` and returns a partial sum on
+    ``model``.  ``w`` is gathered on the batch mesh dims, ``x`` takes its
+    batch rows.  The gradients keep the operands' ``model`` placement
+    (``x``'s partial for the in_proj), so no rank computes the whole
+    weight gradient or the whole input gradient, whatever strategy
+    DTensor would choose for the ``mm``."""
+    if not any(isinstance(t, DTensor) for t in (x, w)):
+        return x @ w
+    lay = _MeshLayout(x, w)
+    wdim = 1 if split == "out" else 0
+    if lay.m == 1 or w.shape[wdim] % lay.m:
+        return x @ w
+    if split == "out":
+        y = lay.run(torch.matmul, (lay.at(Shard(2)),),
+                    (lay.at(Replicate()), lay.at(Shard(1), Replicate())),
+                    (lay.at(Partial()), lay.at(Shard(1), Partial())), x, w)
+        return y.redistribute(lay.mesh, lay.at(Replicate()))
+    return lay.run(torch.matmul, (lay.at(Partial()),),
+                   (lay.at(Shard(2)), lay.at(Shard(0), Replicate())),
+                   (lay.at(Shard(2)), lay.at(Shard(0), Partial())), x, w)
 
 
 def _ssd_chunked(X, B_, C_, dt_, dA, Q: int):
@@ -196,7 +224,7 @@ def apply_mamba_decode(p, x_in: torch.Tensor, state: Dict, cfg
     H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
     K = cfg.ssm_conv
 
-    zxbcdt = x_in @ p["in_proj"]
+    zxbcdt = _project(x_in, p["in_proj"], "out")
     z, xs, Bv, Cv, dtv = _split_proj(cfg, zxbcdt)
     xbc = torch.cat([xs, Bv, Cv], dim=-1)             # [B,1,conv_dim]
     conv_in = torch.cat([state["conv"].to(xbc.dtype), xbc], dim=1)
@@ -219,7 +247,7 @@ def apply_mamba_decode(p, x_in: torch.Tensor, state: Dict, cfg
     y = y + Xh * p["D"][None, :, None]
     y = y.reshape(Bb, 1, di)
     y = rms_norm(y.to(x_in.dtype) * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"], {"h": h, "conv": new_conv}
+    return _project(y, p["out_proj"], "in"), {"h": h, "conv": new_conv}
 
 
 def init_mamba_state(cfg, batch: int, dtype=torch.float32,

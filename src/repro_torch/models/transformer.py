@@ -47,16 +47,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels._common import resolve_device
 
 from .config import ModelConfig
-from .layers import (Boxed, _dtype, _heads, _qkv, apply_ffn, apply_rope,
-                     attn_out, dense_init, gqa_attention, init_attention,
-                     init_ffn, layer_norm, ones_init, own_grad_placement,
-                     rms_norm, rope_frequencies, zeros_init)
+from .layers import (Boxed, _MeshLayout, _dtype, _heads, _qkv, apply_ffn,
+                     apply_rope, attn_out, dense_init, gqa_attention,
+                     init_attention, init_ffn, layer_norm, ones_init,
+                     own_grad_placement, rms_norm, rope_frequencies,
+                     zeros_init)
 from .moe import apply_moe, init_moe
 from .partitioning import constrain, mesh_scope
 from .ssm import (apply_mamba, apply_mamba_decode, init_mamba,
@@ -299,21 +300,40 @@ def _as_tokens(tokens, device) -> torch.Tensor:
 
 def _embed(model, tokens: torch.Tensor, dt) -> torch.Tensor:
     """The token embeddings ``embed[tokens]`` in ``dt``, by ``F.embedding``
-    (the same rows, bit for bit).  On a mesh the table's vocabulary shards
-    are gathered over the mesh dims that split them first: the JAX
-    package's gather of a vocabulary-sharded table fails to partition,
-    and DTensor's masked strategy for it fails to reduce when the tokens
-    are split over another mesh dim.  The ``embed`` dim stays sharded.
+    (the same rows, bit for bit).  On a mesh the lookup runs one shard a
+    rank (``local_map``, ``layers._MeshLayout``), the table's vocabulary
+    gathered: DTensor's masked strategy for a vocabulary-split table
+    fails to reduce when the tokens are split over another mesh dim, and
+    its masked partial output cannot take back the partial-sum gradient
+    of a layer that returns one (mamba's in_proj, the FFN).  A rank
+    looks its batch rows up in the whole table; or, where a step looks up
+    fewer tokens than the table has rows (decode), which moves less than
+    the table, every row in its slice of ``d`` over a mesh dim that
+    splits the table's ``embed`` dim, the output split there on ``d``.
     A tied table's two gradients (this lookup's and the head's,
     :func:`_logits`) each return to the table's placement before they
     are summed: torch 2.11 cannot move one's ``Shard`` to the other's
     ``Partial``."""
-    table = own_grad_placement(model["embed"])
-    if isinstance(table, DTensor) and any(
-            p.is_shard(0) for p in table.placements):
-        table = table.redistribute(table.device_mesh, [
-            Replicate() if p.is_shard(0) else p for p in table.placements])
-    return F.embedding(tokens, table.to(dt))
+    table = own_grad_placement(model["embed"]).to(dt)
+    if not any(isinstance(t, DTensor) for t in (tokens, table)):
+        return F.embedding(tokens, table)
+    lay = _MeshLayout(tokens, table)
+    rows = lay.at(Replicate())
+    keep = tokens.numel() < table.shape[0]
+    tok, tab, out, grad = [], [], [], []
+    for i, p in enumerate(lay.placed(table).placements):
+        if keep and i != lay.m_dim and p.is_shard(1):
+            tok.append(Replicate())
+            tab.append(p)
+            out.append(Shard(2))
+            grad.append(p)
+        else:
+            tok.append(rows[i])
+            tab.append(Replicate())
+            out.append(rows[i])
+            grad.append(Partial() if rows[i].is_shard() else Replicate())
+    return lay.run(F.embedding, (tuple(out),), (tuple(tok), tuple(tab)),
+                   (tuple(tok), tuple(grad)), tokens, table)
 
 
 def _on_mesh(fn: Callable) -> Callable:

@@ -353,18 +353,20 @@ def test_attention_step_on_a_mesh_matches_the_jax_unsharded_step(
     over 1x4 while its 2 kv heads stay replicated; ``gqa_seq``, the same
     under the ``attn_q`` policy, its query's sequence split 4 ways over
     ``model`` (each shard's causal offset, ``wo``'s partial gradient and
-    the gather of ``attn_out``); in ``gqa``'s second layer the batch rows
-    come split over ``model``, and stay so; ``whisper``'s 5 heads (self
-    and cross attention) on 2x2, which 2 does not divide.  One AdamW step
-    within the dense bounds of the JAX package's unsharded step."""
+    the gather of ``attn_out``); ``gqa``'s second layer, its residual
+    stream held by no policy, projects its query heads split as the
+    first does (the projections run one shard a rank); ``whisper``'s 5
+    heads (self and cross attention) on 2x2, which 2 does not divide, so
+    DTensor's strategy projects the query with the batch rows split over
+    ``model`` and the core splits them so.  One AdamW step within the
+    dense bounds of the JAX package's unsharded step."""
     loss, want = jax_attn[case]
     res = ranks()
     wq = {"gqa": "(Replicate(), Shard(dim=1))",
           "gqa_seq": "(Replicate(), Shard(dim=1))",
           "whisper": "(Shard(dim=0), Replicate())"}[case]
-    # the query on ``model``: heads (layer 0) and, the residual stream held
-    # by no policy, batch rows (layer 1); the sequence; whole
-    q = {"gqa": ["S(0)", "S(2)"], "gqa_seq": ["S(1)"], "whisper": ["R"]}[case]
+    # the query on ``model``: heads (both layers); the sequence; rows
+    q = {"gqa": ["S(2)"], "gqa_seq": ["S(1)"], "whisper": ["S(0)"]}[case]
     for r in res["ranks"]:
         got = r[f"attn_{case}"]
         assert abs(got["loss"] - loss) < LOSS_TOL, (got["loss"], loss)

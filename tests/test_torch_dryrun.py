@@ -36,7 +36,7 @@ from repro_torch.checkpoint import flatten_with_paths
 from repro_torch.configs import ALIASES, get_config
 from repro_torch.distributed import (batch_shardings, default_rules,
                                      param_shardings)
-from repro_torch.distributed.sharding import MeshShape
+from repro_torch.distributed.sharding import MeshShape, NamedSharding
 from repro_torch.kernels import autotune as tautotune
 from repro_torch.launch import dryrun, roofline
 from repro_torch.launch.mesh import make_production_mesh
@@ -261,6 +261,160 @@ def test_attention_core_flops_are_per_rank(split):
         assert tuple(out.shape) == (B, S, H, D)
 
 
+def _count_step(fn, tree, x, loss):
+    """FLOPs of ``fn(tree, x)`` and of its backward from ``loss(out)``,
+    each under the per-rank counter."""
+    with ha.count_ops() as fwd:
+        out = fn(tree, x)
+    out = out[0] if isinstance(out, tuple) else out
+    with ha.count_ops() as bwd:
+        loss(out).backward()
+    return fwd.flops, bwd.flops
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+# (the layer of the port, mesh (data, model), x's placement on ``model``):
+# each run on meta tensors, plain and on a fake world of 4
+PROJ_CASES = {
+    "ffn_swiglu": ("ffn_swiglu", (2, 2), Replicate()),
+    "ffn_gelu": ("ffn_gelu", (2, 2), Replicate()),
+    # ``model`` does not divide the ffn dim: the weights are gathered
+    "ffn_indivisible": ("ffn_odd", (2, 2), Replicate()),
+    # router, routed experts (EP) and shared expert
+    "moe_shared_expert": ("moe", (2, 2), Replicate()),
+    # one data rank: the router's rows are not split; x split on model
+    "moe_router_on_1x4": ("moe", (1, 4), Shard(2)),
+    "mamba_in_proj": ("in_proj", (2, 2), Replicate()),
+    "mamba_out_proj": ("out_proj", (2, 2), Replicate()),
+    "mamba_layer": ("mamba", (2, 2), Replicate()),
+    # attention's query projection: heads over ``model``
+    "attn_heads": ("heads", (2, 2), Replicate()),
+}
+
+
+def _proj_case(layer):
+    """``(fn(tree, x), Boxed tree, x width, (share of rows, share of the
+    rest))``: a layer of the port at reduced widths, and how many ranks
+    share each part of its work (the MoE router only the batch rows')."""
+    from repro_torch.models import layers, moe, ssm
+    f32 = torch.float32
+    if layer.startswith("ffn"):
+        act = "swiglu" if layer == "ffn_swiglu" else "gelu"
+        ff = 27 if layer == "ffn_odd" else 32
+        return ((lambda p, x: layers.apply_ffn(p, x, act)),
+                layers.init_ffn(None, 16, ff, act, f32), 16, None)
+    if layer == "heads":
+        return ((lambda p, x: layers._heads(x, p["wq"])),
+                {"wq": layers.init_attention(None, reduced(
+                    get_config("qwen2-0.5b"), dtype="float32", d_model=16,
+                    head_dim=4))["wq"]}, 16, None)
+    if layer == "moe":
+        cfg = reduced(get_config("qwen2-moe-a2.7b"), dtype="float32",
+                      d_model=16, moe_d_ff=16, moe_shared_d_ff=32)
+        return ((lambda p, x: moe.apply_moe(p, x, cfg)),
+                moe.init_moe(None, cfg), 16, cfg)
+    cfg = reduced(get_config("mamba2-2.7b"), dtype="float32", d_model=16,
+                  ssm_head_dim=8)
+    tree = ssm.init_mamba(None, cfg)
+    if layer == "mamba":
+        return ((lambda p, x: ssm.apply_mamba(p, x, cfg)), tree, 16, None)
+    split = "out" if layer == "in_proj" else "in"
+    tree = {layer: tree[layer]}
+    width = tree[layer].value.shape[0]
+    return ((lambda p, x: ssm._project(x, p[layer], split)), tree, width,
+            None)
+
+
+@pytest.mark.parametrize("case", PROJ_CASES)
+def test_projections_are_per_rank(case):
+    """The dense FFN (SwiGLU and GELU), the MoE layer (router, routed
+    experts, shared expert), mamba's in_proj, out_proj and whole layer,
+    and attention's head projection, on meta DTensors placed by the
+    rules over a fake world of 4: forward and backward each count exactly
+    the plain layer's FLOPs over the ranks that share the work (all four;
+    the batch rows' for the MoE router, and for an FFN whose ffn dim
+    ``model`` does not divide), and every gradient is placed as its
+    parameter or input is (of the whole mamba layer, the projections'
+    and the input's)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.models import moe
+    from repro_torch.models.layers import unbox
+    layer, (d, m), x_model = PROJ_CASES[case]
+    fn, boxed, width, cfg = _proj_case(layer)
+    params, axes = unbox(boxed)
+    B, S = 4, 16
+
+    def meta(tree):
+        if isinstance(tree, dict):
+            return {k: meta(v) for k, v in tree.items()}
+        return torch.empty(tree.shape, dtype=tree.dtype, device="meta",
+                           requires_grad=True)
+    plain_p = meta(params)
+    plain_x = torch.empty(B, S, width, device="meta", requires_grad=True)
+    plain = _count_step(fn, plain_p, plain_x, lambda y: y.sum())
+    # how the plain work splits: the router over the rows, the rest over
+    # every rank (an FFN's over the rows where ``model`` cannot split it)
+    router = (0, 0)
+    if cfg is not None:
+        router = _count_step(lambda p, x: moe._router_probs(p, x),
+                             plain_p, plain_x, lambda y: y.sum())
+    rows_only = layer == "ffn_odd"
+    with dryrun.fake_world(WORLD):
+        mesh = init_device_mesh("cpu", (d, m),
+                                mesh_dim_names=("data", "model"))
+        tree = dryrun._place_tree(params, param_shardings(
+            axes, params, mesh, default_rules(mesh)))
+        for t in _leaves(tree):
+            t.requires_grad_()
+        x = dryrun._placed((B, S, width), torch.float32, NamedSharding(
+            mesh, ("data",) + ((None, "model") if x_model.is_shard()
+                               else ())))
+        x.requires_grad_()
+
+        def loss(y):
+            whole = [Replicate() if p.is_partial() else p
+                     for p in y.placements]
+            return y.redistribute(mesh, whole).to_local().sum()
+        with implicit_replication():    # the model's host constants
+            got = _count_step(fn, tree, x, loss)
+        # the whole mamba layer: its projections (the conv, the norm and
+        # the scan's parameters are DTensor ops)
+        pinned = ({k: tree[k] for k in ("in_proj", "out_proj")}
+                  if layer == "mamba" else tree)
+        for t in _leaves(pinned) + [x]:
+            assert tuple(t.grad.placements) == tuple(t.placements), t.shape
+    for i, pass_ in enumerate(("forward", "backward")):
+        rest = plain[i] - router[i]
+        want = router[i] / d + rest / (d if rows_only else d * m)
+        assert plain[i] > 0 and got[i] == want, (pass_, got, plain, router)
+
+
+def test_reduced_train_step_counts_one_share_a_rank(tmp_path):
+    """A whole train step of reduced ``qwen2-0.5b`` (its vocabulary a
+    multiple of 2) on a 2x2 mesh over a fake world of 4 counts exactly a
+    quarter of the same step on a world of one: every matmul of the
+    step (embedding, attention, FFN, logits, their backward and the
+    remat's recompute) is split over the four ranks, none computed whole
+    on a ``model`` rank."""
+    cfg = reduced(get_config("qwen2-0.5b"), vocab_size=256)
+    flops = {}
+    for d, m in ((1, 1), (2, 2)):
+        with dryrun.fake_world(d * m):
+            rec = dryrun.run_cell("qwen2-0.5b", "train_4k", "single",
+                                  out_dir=str(tmp_path), cfg=cfg,
+                                  force=True, mesh_shape=MeshShape(
+                                      (d, m), ("data", "model")))
+        assert rec["status"] == "ok", rec.get("trace")
+        flops[d * m] = rec["cost"]["flops_per_device"]
+    assert flops[4] * 4 == flops[1] > 0
+
+
 # reduced cells that raised on a mesh (the arch, shape, mesh and
 # overrides of ``reduced``): heads the fake mesh's ``model`` dim does not
 # divide, a split vocabulary at the greedy argmax, a split mamba state
@@ -276,6 +430,10 @@ MESH_CELLS = {
     # vocabulary over ``model`` at the greedy argmax
     "jamba-v0.1-52b/long_500k": ("jamba-v0.1-52b", "long_500k", (2, 2),
                                  dict(vocab_size=256)),
+    # the same on 1x4: the MoE router's input reaches it split on
+    # ``model`` (the router runs per rank, that split gathered)
+    "jamba-v0.1-52b/long_500k-on-1x4": ("jamba-v0.1-52b", "long_500k",
+                                        (1, 4), dict(vocab_size=256)),
     # one stream on 1x4: DTensor split the state update's head dim P
     "mamba2-2.7b/long_500k": ("mamba2-2.7b", "long_500k", (1, 4), {}),
 }
@@ -288,8 +446,9 @@ def test_reduced_cells_record_ok(cell, tmp_path):
     at all (whisper train, self and cross attention: 5 on 2x2), record
     ``ok``: the attention core runs one shard a rank.  So do jamba's
     single-stream decode, whose greedy step takes the argmax of logits
-    with a split vocabulary, and mamba2's on 1x4, whose recurrence runs
-    one shard a rank (``models/ssm.py``)."""
+    with a split vocabulary (on 1x4 its MoE router's input arrives split
+    on ``model``), and mamba2's on 1x4, whose recurrence runs one shard
+    a rank (``models/ssm.py``)."""
     arch, shape, mesh, over = MESH_CELLS[cell]
     cfg = reduced(get_config(arch), **over)
     with dryrun.fake_world(WORLD):

@@ -9,13 +9,19 @@ processes on ``cuda:0`` joined by gloo, the tiny float32 config of
 ``tests/_multidevice_worker.py`` (``yi-9b`` cut to 2 layers, d_model 32,
 vocab 400) placed by the sharding rules on a 2x1 ``(data, model)`` mesh
 and trained for one AdamW step, against the same step of the plain path
-on the card.  It prints one JSON line: whether every rank ran clean, the
-losses, the largest parameter difference, the seconds, and on failure
-each rank's error and the last stage it reached (a process that crashes
-leaves no traceback).
+on the card.  First each of :data:`PROBES` runs in a pair of processes
+of its own: one collective of torch on a ``cuda:0`` tensor over gloo,
+with no code of the port.  It prints one JSON line: the torch version,
+whether each probe and every rank of the step ran clean, the losses,
+the largest parameter difference, the seconds, and on failure each
+rank's error and the last stage it reached.  A process that crashes
+leaves no traceback, so each rank prints its Python frames to stderr on
+a fatal signal (``faulthandler``); a probe that dies as the step does
+puts the fault in torch.
 """
 
 import argparse
+import faulthandler
 import json
 import os
 import sys
@@ -46,7 +52,14 @@ def _batch(shard, num_shards):
                          prefetch=0).batch_at(0)
 
 
+def _trace() -> str:
+    """The current exception's traceback, its head and tail."""
+    tb = traceback.format_exc()
+    return tb if len(tb) <= 3000 else tb[:1500] + "\n...\n" + tb[-1500:]
+
+
 def rank_main(rank, world, init, out_dir):
+    faulthandler.enable()
     import torch
     import torch.distributed as dist
     res = {"rank": rank}
@@ -96,9 +109,96 @@ def rank_main(rank, world, init, out_dir):
         res["ok"] = True
     except Exception:
         res["ok"] = False
-        res["error"] = traceback.format_exc()[-3000:]
+        res["error"] = _trace()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
+
+
+def _probe_all_gather(dist, t):
+    out = t.new_empty((2 * t.shape[0],) + tuple(t.shape[1:]))
+    dist.all_gather_into_tensor(out, t)
+    return out
+
+
+def _probe_funcol_all_gather(dist, t):
+    # the collective DTensor's redistribute issues (all_gather_tensor,
+    # then wait_tensor)
+    from torch.distributed import _functional_collectives as funcol
+    return funcol.all_gather_tensor(t, 0, dist.group.WORLD).wait()
+
+
+def _probe_funcol_all_reduce(dist, t):
+    from torch.distributed import _functional_collectives as funcol
+    return funcol.all_reduce(t, "sum", dist.group.WORLD).wait()
+
+
+def _probe_dtensor_gather(dist, t):
+    # DTensor's Shard(0) -> Replicate() of a tensor split over the ranks
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = init_device_mesh("cuda", (dist.get_world_size(),))
+    return DTensor.from_local(t, mesh, (Shard(0),)).redistribute(
+        mesh, (Replicate(),)).to_local()
+
+
+# name -> fn(torch.distributed, a [4, 8] float32 tensor on cuda:0)
+PROBES = {"c10d_all_gather": _probe_all_gather,
+          "funcol_all_gather": _probe_funcol_all_gather,
+          "funcol_all_reduce": _probe_funcol_all_reduce,
+          "dtensor_gather": _probe_dtensor_gather}
+
+
+def probe_main(rank, world, init, out_dir, name):
+    faulthandler.enable()
+    import torch
+    import torch.distributed as dist
+    res = {"rank": rank}
+    try:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"file://{init}",
+                                rank=rank, world_size=world)
+        t = torch.full((4, 8), float(rank + 1), device=dev)
+        out = PROBES[name](dist, t)
+        torch.cuda.synchronize()
+        res["sum"] = float(out.sum())
+        dist.destroy_process_group()
+        res["ok"] = True
+    except Exception:
+        res["ok"] = False
+        res["error"] = _trace()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _spawn(fn, world, extra=()):
+    """``fn(rank, world, init, tmp, *extra)`` in ``world`` processes: each
+    rank's result (its JSON file, else the crash) and the wall seconds."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        try:
+            mp.spawn(fn, args=(world, os.path.join(tmp, "init"), tmp) +
+                     tuple(extra), nprocs=world, join=True)
+            crash = None
+        except mp.ProcessExitedException as e:
+            crash = str(e)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            path = os.path.join(tmp, f"rank{r}.json")
+            res = (json.load(open(path)) if os.path.exists(path) else
+                   {"rank": r, "ok": False, "error": crash})
+            stage = os.path.join(tmp, f"stage{r}")
+            if os.path.exists(stage):
+                res["last_stage"] = open(stage).read()
+            ranks.append(res)
+        params = os.path.join(tmp, "params.pt")
+        got = None
+        if os.path.exists(params):
+            import torch
+            got = torch.load(params)
+    return ranks, wall, got
 
 
 def main() -> int:
@@ -107,50 +207,35 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     import torch
-    import torch.multiprocessing as mp
     if not torch.cuda.is_available():
         print("dist_standin: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch import models as tm
     from repro_torch import training as tt
     from repro_torch.checkpoint import flatten_with_paths
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        try:
-            mp.spawn(rank_main, args=(args.world, os.path.join(tmp, "init"),
-                                      tmp), nprocs=args.world, join=True)
-            crash = None
-        except mp.ProcessExitedException as e:
-            crash = str(e)
-        wall = time.perf_counter() - t0
-        ranks = []
-        for r in range(args.world):
-            path = os.path.join(tmp, f"rank{r}.json")
-            res = (json.load(open(path)) if os.path.exists(path) else
-                   {"rank": r, "ok": False, "error": crash})
-            stage = os.path.join(tmp, f"stage{r}")
-            if os.path.exists(stage):
-                res["last_stage"] = open(stage).read()
-            ranks.append(res)
-        out = {"world": args.world, "backend": "gloo", "device": "cuda:0",
-               "ok": all(r["ok"] for r in ranks), "seconds": wall,
-               "ranks": ranks}
-        if out["ok"]:
-            cfg = _tiny()
-            dev = torch.device("cuda", 0)
-            model = tm.init_lm(cfg, torch.Generator().manual_seed(0),
-                               device=dev)
-            x, y = _batch(0, 1)
-            opt = tt.AdamW(lr=LR)
-            model, _, met = tt.make_train_step(cfg, opt)(
-                model, opt.init(tm.lm_to_params(model)),
-                {"tokens": torch.from_numpy(x).to(dev),
-                 "labels": torch.from_numpy(y).to(dev)})
-            got = torch.load(os.path.join(tmp, "params.pt"))
-            want = dict(flatten_with_paths(tm.lm_to_params(model)))
-            out["plain_loss"] = float(met["loss"])
-            out["max_param_diff"] = max(
-                float((got[k] - want[k].cpu()).abs().max()) for k in want)
+    out = {"world": args.world, "backend": "gloo", "device": "cuda:0",
+           "torch": torch.__version__, "probes": {}}
+    for name in PROBES:
+        ranks, wall, _ = _spawn(probe_main, args.world, (name,))
+        out["probes"][name] = {"ok": all(r["ok"] for r in ranks),
+                               "seconds": wall, "ranks": ranks}
+    ranks, wall, got = _spawn(rank_main, args.world)
+    out.update(ok=all(r["ok"] for r in ranks), seconds=wall, ranks=ranks)
+    if out["ok"]:
+        cfg = _tiny()
+        dev = torch.device("cuda", 0)
+        model = tm.init_lm(cfg, torch.Generator().manual_seed(0),
+                           device=dev)
+        x, y = _batch(0, 1)
+        opt = tt.AdamW(lr=LR)
+        model, _, met = tt.make_train_step(cfg, opt)(
+            model, opt.init(tm.lm_to_params(model)),
+            {"tokens": torch.from_numpy(x).to(dev),
+             "labels": torch.from_numpy(y).to(dev)})
+        want = dict(flatten_with_paths(tm.lm_to_params(model)))
+        out["plain_loss"] = float(met["loss"])
+        out["max_param_diff"] = max(
+            float((got[k] - want[k].cpu()).abs().max()) for k in want)
     line = json.dumps(out)
     print(line)
     if args.out:
