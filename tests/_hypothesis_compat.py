@@ -2,12 +2,14 @@
 
 ``hypothesis`` is a dev-only dependency; the tier-1 suite must collect and
 pass without it.  When it is installed we re-export the real ``given`` /
-``settings`` / ``strategies``.  When it is absent we fall back to a small,
-deterministic fixed-example harness: each ``@given(...)`` test becomes a
-``pytest.mark.parametrize`` over ``FALLBACK_EXAMPLES`` samples drawn from a
-seeded generator (first sample is the boundary/minimal draw of every
-strategy, the rest are random).  Coverage is weaker than real hypothesis but
-the tests still execute the exact same assertions.
+``example`` / ``settings`` / ``strategies``.  When it is absent we fall back
+to a small, deterministic fixed-example harness: each ``@given(...)`` test
+becomes a ``pytest.mark.parametrize`` over ``FALLBACK_EXAMPLES`` samples
+drawn from a seeded generator (first sample is the boundary/minimal draw of
+every strategy, the rest are random), after the examples pinned with
+``@example(...)`` (written below ``@given``), so a pinned failure shows there
+too.  Coverage is weaker than real hypothesis but the tests still execute
+the exact same assertions.
 
 Only the strategy surface the test suite uses is implemented:
 ``st.integers(lo, hi)`` and ``st.lists(elem, min_size=, max_size=)``.
@@ -16,10 +18,13 @@ Only the strategy surface the test suite uses is implemented:
 from __future__ import annotations
 
 try:  # pragma: no cover - exercised implicitly by which branch imports
-    from hypothesis import given, settings, strategies as st  # noqa: F401
+    from hypothesis import (example, given, settings,  # noqa: F401
+                            strategies as st)
 
     HAVE_HYPOTHESIS = True
 except ImportError:
+    import inspect
+
     import numpy as np
     import pytest
 
@@ -64,14 +69,23 @@ except ImportError:
             return fn
         return deco
 
+    def example(*args, **kwargs):
+        def deco(fn):
+            pinned = inspect.signature(fn).bind(*args, **kwargs).args
+            fn._hc_pinned = [pinned] + getattr(fn, "_hc_pinned", [])
+            return fn
+        return deco
+
     def given(*strategies):
         def deco(fn):
             rng = np.random.default_rng(_SEED)
-            examples = [
+            pinned = getattr(fn, "_hc_pinned", [])
+            examples = pinned + [
                 tuple(s.example(rng, boundary=(i == 0)) for s in strategies)
                 for i in range(FALLBACK_EXAMPLES)
             ]
-            ids = [f"ex{i}" for i in range(len(examples))]
+            ids = ([f"pinned{i}" for i in range(len(pinned))]
+                   + [f"ex{i}" for i in range(FALLBACK_EXAMPLES)])
 
             @pytest.mark.parametrize("_hc_example", examples, ids=ids)
             def wrapper(_hc_example):

@@ -59,6 +59,6 @@ def test_multidevice_subprocess():
     worker = os.path.join(os.path.dirname(__file__),
                           "_multidevice_worker.py")
     r = subprocess.run([sys.executable, worker], capture_output=True,
-                       text=True, timeout=1200)
+                       text=True, timeout=300)
     assert r.returncode == 0, f"stdout:\n{r.stdout}\nstderr:\n{r.stderr}"
     assert "MULTIDEVICE ALL OK" in r.stdout

@@ -23,7 +23,7 @@ import os
 import numpy as np
 import pytest
 
-from _hypothesis_compat import given, settings, st
+from _hypothesis_compat import example, given, settings, st
 from _invariants import check_all, expected_stream
 from conftest import make_repetitive_files
 
@@ -107,6 +107,7 @@ def test_word_token_validation():
 # -------------------------------------------------------- property suite --
 @given(st.lists(st.lists(st.integers(0, 7), min_size=0, max_size=14),
                 min_size=1, max_size=6))
+@example(files=[[1, 0, 0, 0, 1, 0]])
 def test_invariants_after_every_append(files):
     """Full invariant set after EVERY append of a random stream (tiny
     vocab forces heavy rule formation)."""
@@ -382,6 +383,7 @@ def test_expand_survives_deep_chain_grammar():
           deadline=None)
 @given(st.lists(st.lists(st.integers(0, 5), min_size=0, max_size=40),
                 min_size=1, max_size=10))
+@example(files=[[0, 1, 1, 1, 0, 1]])
 def test_ingest_fuzz(files):
     """Nightly lane: many more examples (INGEST_FUZZ_EXAMPLES), invariants
     after every append AND corpus-level bit-exactness per stream."""

@@ -184,6 +184,6 @@ def test_sharded_subprocess():
     this is the sharding layer's primary correctness gate)."""
     worker = os.path.join(os.path.dirname(__file__), "_shard_worker.py")
     r = subprocess.run([sys.executable, worker], capture_output=True,
-                       text=True, timeout=1200)
+                       text=True, timeout=300)
     assert r.returncode == 0, f"stdout:\n{r.stdout}\nstderr:\n{r.stderr}"
     assert "SHARDED ALL OK" in r.stdout

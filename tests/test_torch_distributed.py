@@ -27,6 +27,7 @@ import os
 import socket
 import subprocess
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -93,8 +94,12 @@ def ranks(tmp_path_factory):
     def results():
         if not done:
             # the ranks run at a lower priority (the worker's ``main``):
-            # a busy host may hold them back for minutes
-            logs = [p.communicate(timeout=600)[0] for p in procs]
+            # a busy host may hold them back for minutes.  All eight share
+            # one deadline; the teardown below kills any rank left over.
+            deadline = time.monotonic() + 600
+            logs = [p.communicate(
+                timeout=max(0.0, deadline - time.monotonic()))[0]
+                for p in procs]
             bad = [r for r, p in enumerate(procs) if p.returncode]
             assert not bad, f"worker {bad[0]} failed:\n{logs[bad[0]][-6000:]}"
             done["ranks"] = [
