@@ -62,6 +62,7 @@ from repro_torch.obs import plan_stage as _plan_stage
 
 from .grammar import GrammarArrays, StaleGrammarError
 from .grammar import pow2_bucket as _pow2_bucket
+from .host_copy import to_host
 from . import sequence as _sequence
 from .sequence import _K_HEAD, _K_LIT, _K_TAIL
 
@@ -835,17 +836,17 @@ def batched_ranked_inverted_index(gb: GrammarBatch, method: str = "frontier"
 def unbatch(gb: GrammarBatch, packed: torch.Tensor,
             kind: str = "word_count") -> List[np.ndarray]:
     """Slice a packed result (one row per real corpus and any padding
-    rows after them) back to per-corpus true shapes."""
-    host = packed.cpu().numpy()
-    out = []
-    for i, ga in enumerate(gb.real_gas):
-        if kind == "word_count":
-            out.append(host[i, : ga.vocab_size])
-        elif kind in ("term_vector", "inverted_index"):
-            out.append(host[i, : ga.num_files, : ga.vocab_size])
-        else:
-            raise ValueError(f"cannot unbatch kind {kind!r}")
-    return out
+    rows after them) back to per-corpus true shapes, on its device, and
+    copy only those slices to the host (``host_copy.to_host``)."""
+    if kind == "word_count":
+        parts = [packed[i, : ga.vocab_size]
+                 for i, ga in enumerate(gb.real_gas)]
+    elif kind in ("term_vector", "inverted_index"):
+        parts = [packed[i, : ga.num_files, : ga.vocab_size]
+                 for i, ga in enumerate(gb.real_gas)]
+    else:
+        raise ValueError(f"cannot unbatch kind {kind!r}")
+    return to_host(parts)
 
 
 # ----------------------------------------------------------------------- #
@@ -1005,9 +1006,7 @@ def batched_sequence_count(gb: GrammarBatch, l: int = 3,
     head, tail, stream = _padded_sequence_plans(gb, l)
     stok, seg, counts = _count_windows_batched(head, tail, weights,
                                                *stream, l)
-    stok_h = stok.cpu().numpy()
-    seg_h = seg.cpu().numpy()
-    counts_h = counts.cpu().numpy()
+    stok_h, seg_h, counts_h = to_host((stok, seg, counts))
     out: List[Tuple[np.ndarray, np.ndarray]] = []
     for i in range(gb.n):
         n_seg = int(seg_h[i, -1]) + 1
@@ -1042,9 +1041,8 @@ def run_batched(gb: GrammarBatch, kind: str, method: str = "frontier",
         return unbatch(gb, batched_word_count(gb, method=method,
                                               backend=backend), "word_count")
     if kind == "sort":
-        return [(o.cpu().numpy(), c.cpu().numpy())
-                for (o, c) in batched_sort_words(gb, method=method,
-                                                 backend=backend)]
+        return to_host(batched_sort_words(gb, method=method,
+                                          backend=backend))
     if kind == "term_vector":
         return unbatch(gb, batched_term_vector(gb, method=method),
                        "term_vector")
@@ -1052,9 +1050,7 @@ def run_batched(gb: GrammarBatch, kind: str, method: str = "frontier",
         return unbatch(gb, batched_inverted_index(gb, method=method),
                        "inverted_index")
     if kind == "ranked_inverted_index":
-        return [(r.cpu().numpy(), c.cpu().numpy())
-                for (r, c) in batched_ranked_inverted_index(gb,
-                                                            method=method)]
+        return to_host(batched_ranked_inverted_index(gb, method=method))
     if kind == "sequence_count":
         return batched_sequence_count(gb, l=l, method=method)
     raise ValueError(f"unknown analytics kind {kind!r}; "

@@ -25,6 +25,7 @@ import torch
 from repro_torch.kernels._common import resolve_device
 
 from .grammar import GrammarArrays
+from .host_copy import to_host
 
 _GAP = -1
 _BREAK = -2
@@ -282,9 +283,7 @@ def sequence_count(ga: GrammarArrays, l: int = 3, method: str = "frontier",
         put(sp.st_idx, np.int64), put(sp.st_symj, np.int32),
         put(sp.win_start, np.int64), put(sp.win_rule, np.int64),
         torch.ones((1, len(sp.win_start)), dtype=torch.bool, device=dev), l)
-    stok = stok[0].cpu().numpy()
-    seg = seg[0].cpu().numpy()
-    counts = counts[0].cpu().numpy()
+    stok, seg, counts = to_host((stok[0], seg[0], counts[0]))
     n_seg = int(seg[-1]) + 1
     # representative token tuple of each segment = first row of the segment
     first_idx = np.searchsorted(seg, np.arange(n_seg), "left")

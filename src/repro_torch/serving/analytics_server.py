@@ -43,6 +43,9 @@ Devices: every execution runs under ``torch.cuda.device(server.device)``,
 so a flush on the async queue's background thread (PyTorch's current
 device is per thread) launches on the pack's card and on that thread's
 current stream.
+Answers reach the host through ``core.host_copy.to_host`` (page-locked
+copies, one synchronise a call); the bytes it copies are the one metric
+family the JAX package's server lacks, ``repro_server_host_copy_bytes_total``.
 
 Corpus-sharded execution: with more than one visible card the server holds
 a corpus mesh (``mesh="auto"`` ->
@@ -74,6 +77,7 @@ from repro_torch.obs import BoundedLog, MetricsRegistry
 from repro_torch.obs import tracing as _trace
 
 from repro_torch.core import GrammarArrays, analytics as _analytics
+from repro_torch.core.host_copy import count_host_copies, to_host
 from repro_torch.core.batch import (ANALYTICS_KINDS, PER_FILE_KINDS,
                                     GrammarBatch, is_segment_sum_fallback,
                                     resolve_batch_method, run_batched,
@@ -272,7 +276,11 @@ class ServerStats:
     * ``method_fallbacks`` — "requested->resolved" counts of explicit
       ELL-family requests that degraded to their segment_sum base
       (core.batch.is_segment_sum_fallback);
-    * ``flushes`` — flush reason -> count (written by serving/queue.py).
+    * ``flushes`` — flush reason -> count (written by serving/queue.py);
+    * ``host_copy_bytes`` — bytes the engine copied off the device for the
+      answers it handed back (``core.host_copy.to_host``), by host buffer:
+      ``"pinned"`` (page-locked, the card's path) or ``"pageable"`` (page-
+      locked memory could not be had); both stay 0 on a CPU server.
 
     The latency estimator state (``latency_ewma`` / ``latency_obs``) stays
     plain host dicts: it is flush-*policy* control state keyed by tuples,
@@ -323,6 +331,12 @@ class ServerStats:
             "repro_server_method_fallbacks_total",
             "explicit ELL-family requests degraded to a segment_sum base",
             ("transition",)))
+        copies = r.counter(
+            "repro_server_host_copy_bytes_total",
+            "bytes of answers copied off the device, by host buffer",
+            ("path",))
+        self._host_copy = {p: copies.labels(p)
+                           for p in ("pinned", "pageable")}
         # submit-to-result decomposition: pack_build / compile / execute /
         # queue_wait (docs/observability.md has the stage model)
         self.stage_seconds = r.histogram(
@@ -336,6 +350,13 @@ class ServerStats:
         self.latency_ewma: Dict[Tuple, float] = {}
         self.latency_obs: Dict[Tuple, int] = {}
         self.ewma_alpha: float = 0.25
+
+    @property
+    def host_copy_bytes(self) -> Dict[str, int]:
+        return {p: int(c.value) for p, c in self._host_copy.items()}
+
+    def count_host_copy(self, path: str, nbytes: int) -> None:
+        self._host_copy[path].inc(nbytes)
 
     @property
     def max_queue_depth(self) -> int:
@@ -352,7 +373,8 @@ class ServerStats:
                 f"max_queue_depth={self.max_queue_depth}, "
                 f"flushes={dict(self.flushes)}, "
                 f"signatures={dict(self.signatures)}, "
-                f"method_fallbacks={dict(self.method_fallbacks)})")
+                f"method_fallbacks={dict(self.method_fallbacks)}, "
+                f"host_copy_bytes={self.host_copy_bytes})")
 
     def observe_latency(self, kind: str, signature: Tuple,
                         seconds: float) -> None:
@@ -822,7 +844,8 @@ class AnalyticsServer:
                           attrs={"kind": kind, "n_corpora": len(chunk),
                                  "shards": shards})
               if tracing else nullcontext())
-        with cm as chunk_span, self._device_scope():
+        with cm as chunk_span, self._device_scope(), \
+                count_host_copies(self.stats.count_host_copy):
             if len(chunk) == 1 and shards == 1:
                 name = chunk[0]
                 if name in self._stores:
@@ -964,29 +987,22 @@ class AnalyticsServer:
             elif kind in PER_FILE_KINDS:
                 wf = store.per_file_weights(m, device=dev)
         if kind == "word_count":
-            return _host(_analytics.word_count(ga, method=m, weights=w,
-                                               device=dev))
+            return to_host(_analytics.word_count(ga, method=m, weights=w,
+                                                 device=dev))
         if kind == "sort":
-            return _host(_analytics.sort_words(ga, method=m, weights=w,
-                                               device=dev))
+            return to_host(_analytics.sort_words(ga, method=m, weights=w,
+                                                 device=dev))
         if kind == "term_vector":
-            return _host(_analytics.term_vector(ga, method=m,
-                                                file_weights=wf, device=dev))
+            return to_host(_analytics.term_vector(
+                ga, method=m, file_weights=wf, device=dev))
         if kind == "inverted_index":
-            return _host(_analytics.inverted_index(
+            return to_host(_analytics.inverted_index(
                 ga, method=m, file_weights=wf, device=dev))
         if kind == "ranked_inverted_index":
-            return _host(_analytics.ranked_inverted_index(
+            return to_host(_analytics.ranked_inverted_index(
                 ga, method=m, file_weights=wf, device=dev))
         if kind == "sequence_count":
             return _analytics.sequence_count(ga, l=l, method=m, weights=w,
                                              device=dev)
         raise ValueError(f"unknown analytics kind {kind!r}")
 
-
-def _host(r):
-    """A single-corpus analytics result as numpy (tensors copied off the
-    device), shaped like the JAX package's."""
-    if isinstance(r, tuple):
-        return tuple(_host(x) for x in r)
-    return r.cpu().numpy()

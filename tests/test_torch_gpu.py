@@ -722,6 +722,84 @@ def test_servers_on_card(cuda):
         assert srv[None].stats.shed == 0
 
 
+def _answer_parts(answers):
+    return [p for a in answers for p in (a if isinstance(a, tuple) else (a,))]
+
+
+def test_answers_land_pinned_and_the_callers_own_on_card(cuda):
+    """Answers reach the host in page-locked memory, in true shapes (a
+    transposed answer keeps its layout, a strided slice lands dense); the
+    server counts their bytes as pinned and none as pageable; an answer
+    held across a second call of its kind keeps its values and shares no
+    memory with it; every kind equals the CPU server's answers."""
+    from repro_torch.core.host_copy import to_host
+    from repro_torch.serving import AnalyticsServer, Query
+    base = torch.arange(60, dtype=torch.float32, device=cuda).view(6, 10)
+    tr, sl = to_host([base.T, base[1:4, :7]])
+    want = base.cpu().numpy()
+    np.testing.assert_array_equal(tr, want.T)
+    np.testing.assert_array_equal(sl, want[1:4, :7])
+    assert tr.flags.f_contiguous and sl.flags.c_contiguous
+    assert torch.from_numpy(tr).is_pinned()
+    assert torch.from_numpy(sl).is_pinned()
+
+    gas = _ragged_gas()
+    names = [f"c{i}" for i in range(len(gas))]
+    srv = {dev: AnalyticsServer(max_batch=len(gas), device=dev)
+           for dev in (None, "cpu")}
+    for s_ in srv.values():
+        for name, ga in zip(names, gas):
+            s_.register(name, ga)
+    card = srv[None]
+    assert card.device.type == "cuda"
+    for kind in ANALYTICS_KINDS:
+        qs = [Query(c, kind) for c in names]
+        pinned0 = card.stats.host_copy_bytes["pinned"]
+        first = card.run(qs)
+        copied = card.stats.host_copy_bytes["pinned"] - pinned0
+        parts = _answer_parts(first)
+        if kind == "sequence_count":
+            # grams and counts are cut on the host from the copied windows
+            assert copied > 0
+        else:
+            assert copied == sum(p.nbytes for p in parts), kind
+            assert all(torch.from_numpy(p).is_pinned() for p in parts), kind
+        assert card.stats.host_copy_bytes["pageable"] == 0
+        held = [p.copy() for p in parts]
+        second = card.run(qs)
+        for a in parts:
+            assert not any(np.shares_memory(a, b)
+                           for b in _answer_parts(second)), kind
+        for a, h in zip(parts, held):
+            np.testing.assert_array_equal(a, h, err_msg=kind)
+        _equal(first, srv["cpu"].run(qs), f"{kind} card vs cpu")
+        _equal(second, first, f"{kind} second call")
+    assert srv["cpu"].stats.host_copy_bytes == {"pinned": 0, "pageable": 0}
+
+
+def test_host_copy_falls_back_to_pageable_on_card(cuda, monkeypatch):
+    """Where page-locked memory cannot be had, the copy lands in pageable
+    memory, counted as such, with the same values."""
+    from repro_torch.core import host_copy
+    empty_like = torch.empty_like
+
+    def no_pinned(*args, **kwargs):
+        if kwargs.get("pin_memory"):
+            raise RuntimeError("no page-locked memory")
+        return empty_like(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "empty_like", no_pinned)
+    base = torch.arange(60, dtype=torch.float32, device=cuda).view(6, 10)
+    seen = []
+    with host_copy.count_host_copies(lambda p, n: seen.append((p, n))):
+        tr, sl = host_copy.to_host((base.T, base[1:4, :7]))
+    want = base.cpu().numpy()
+    np.testing.assert_array_equal(tr, want.T)
+    np.testing.assert_array_equal(sl, want[1:4, :7])
+    assert not torch.from_numpy(tr).is_pinned()
+    assert seen == [("pageable", tr.nbytes), ("pageable", sl.nbytes)]
+
+
 # ------------------------------------------- launch shapes (autotuner) --
 from repro_torch.kernels import autotune  # noqa: E402
 from repro_torch.kernels import bincount as _bincount  # noqa: E402

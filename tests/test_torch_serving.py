@@ -6,7 +6,13 @@
   for bit, and the same counters (``queries``, ``groups``,
   ``batched_calls``, ``single_calls``, ``method_fallbacks``,
   ``batch_cache_hits``, ``epoch_invalidations``, pack signatures), under
-  every traversal method; both registries expose the same metric families.
+  every traversal method; both registries expose the same metric families,
+  and the port's one more (``repro_server_host_copy_bytes_total``).
+* Answers: every analytics kind, through ``run_batched`` and the server,
+  comes back in its true shape and dtype (a pack whose vocabularies are
+  not powers of two), each call's arrays its own: an answer held from one
+  call keeps its values through the next; no host copy is counted on the
+  CPU.
 * Ingest: an append between submit and flush is served fresh; a stale
   pack is refused (``check_epochs``) and a stale pack planted back into the
   cache is re-verified away.
@@ -35,14 +41,15 @@ from repro.core import compress_files as jcompress, flatten as jflatten
 from repro.data import CompressedCorpus as JCorpus
 import repro.serving as js
 from repro_torch.core import GrammarArrays, GrammarBatch, StaleGrammarError
-from repro_torch.core.batch import METHODS
+from repro_torch.core.batch import ANALYTICS_KINDS, METHODS, run_batched
 from repro_torch.data import CompressedCorpus
 from repro_torch.distributed import corpus_mesh, mesh_size
 from repro_torch.obs import span_problems
 import repro_torch.serving as ts
 
 from _hypothesis_compat import given, settings, st
-from _oracle import oracle_search
+from _oracle import assert_result_equal, oracle, oracle_search
+from _torch_inputs import ragged_corpora
 from conftest import make_repetitive_files
 
 torch.set_num_threads(1)
@@ -160,12 +167,78 @@ def test_mixed_run_matches_the_reference_server(corpora, method):
     st_ = tsrv.stats
     assert st_.single_calls > 0 and st_.batched_calls > 0
     assert st_.batch_cache_hits > 0
-    # the same metric families, so a dashboard reads either package
+    # the same metric families, so a dashboard reads either package, and
+    # the port's one more: the bytes of answers copied off the device
     tsnap, jsnap = tsrv.registry.snapshot(), jsrv.registry.snapshot()
     assert {n: v["type"] for n, v in tsnap.items()} == \
-        {n: v["type"] for n, v in jsnap.items()}
+        {n: v["type"] for n, v in jsnap.items()} | \
+        {"repro_server_host_copy_bytes_total": "counter"}
     text = tsrv.registry.render_prometheus()
     assert "# TYPE repro_server_queries_total counter" in text
+
+
+#: each analytics kind's answer parts and their dtypes
+ANSWER_DTYPES = {"word_count": (np.float32,), "sort": (np.int32, np.float32),
+                 "term_vector": (np.float32,), "inverted_index": (np.bool_,),
+                 "ranked_inverted_index": (np.int32, np.float32),
+                 "sequence_count": (np.int32, np.float32)}
+
+
+def _parts(answers):
+    return [p for a in answers for p in (a if isinstance(a, tuple) else (a,))]
+
+
+def _check_own_answers(kind, jgas, first, second_call):
+    """``first`` (a call's answers, one a corpus) equals the oracle in
+    true shapes and dtypes; ``second_call()`` repeats the call; neither
+    call's arrays share memory with the other's, and ``first`` keeps its
+    values (the benchmark's check holds early answers this way)."""
+    for i, (jga, got) in enumerate(zip(jgas, first)):
+        want = oracle(jga, kind)
+        assert_result_equal(got, want, kind, f"corpus {i}")
+        gots = got if isinstance(got, tuple) else (got,)
+        wants = want if isinstance(want, tuple) else (want,)
+        assert [g.dtype for g in gots] == \
+            [np.dtype(d) for d in ANSWER_DTYPES[kind]], (kind, i)
+        assert [g.shape for g in gots] == [np.shape(w) for w in wants]
+    held = [p.copy() for p in _parts(first)]
+    second = second_call()
+    for a in _parts(first):
+        for b in _parts(second):
+            assert not np.shares_memory(a, b), kind
+    for a, h in zip(_parts(first), held):
+        np.testing.assert_array_equal(a, h, err_msg=kind)
+    for a, b in zip(_parts(first), _parts(second)):
+        np.testing.assert_array_equal(a, b, err_msg=kind)
+
+
+@pytest.mark.parametrize("kind", ANALYTICS_KINDS)
+def test_answers_are_true_shapes_and_the_callers_own(kind):
+    jgas = []
+    for files, v in ragged_corpora():
+        g, nf = jcompress(files, v)
+        jgas.append(jflatten(g, v, nf))
+    tgas = [GrammarArrays.from_numpy({n: getattr(ga, n) for n in FIELDS})
+            for ga in jgas]
+    gb = GrammarBatch.build(tgas, device="cpu")
+    assert gb.V_pad not in [ga.vocab_size for ga in tgas]
+    _check_own_answers(kind, jgas, run_batched(gb, kind),
+                       lambda: run_batched(gb, kind))
+    srv = ts.AnalyticsServer(max_batch=len(tgas), device="cpu")
+    names = [f"c{i}" for i in range(len(tgas))]
+    for name, ga in zip(names, tgas):
+        srv.register(name, ga)
+
+    def served():
+        return srv.run([ts.Query(c, kind) for c in names])
+
+    _check_own_answers(kind, jgas, served(), served)
+    assert srv.stats.batched_calls == 2
+    assert srv.stats.host_copy_bytes == {"pinned": 0, "pageable": 0}
+    samples = srv.registry.snapshot()[
+        "repro_server_host_copy_bytes_total"]["samples"]
+    assert {r["labels"]["path"]: r["value"] for r in samples} == \
+        {"pinned": 0, "pageable": 0}
 
 
 def test_search_answers_equal_the_oracle(corpora):
