@@ -59,6 +59,7 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels._common import resolve_device
 from repro_torch.obs import plan_stage as _plan_stage
+from repro_torch.obs import traverse as _traverse
 
 from .grammar import GrammarArrays, StaleGrammarError
 from .grammar import pow2_bucket as _pow2_bucket
@@ -563,14 +564,17 @@ def resolve_batch_method(gb: GrammarBatch, method: str,
         f=gb.F_pad)
 
 
-def _frontier_ell_weights(ell_src, ell_freq, in_deg) -> torch.Tensor:
+def _frontier_ell_weights(ell_src, ell_freq, in_deg
+                          ) -> Tuple[torch.Tensor, int]:
     """Masked frontier rounds over the dense ELL plan: every round is one
-    gather kernel emitting both delta and the seen-counter."""
+    gather kernel emitting both delta and the seen-counter.  Returns
+    ``(weights, rounds)``."""
     N, R = in_deg.shape
     weight = _root_weights(N, R, in_deg.device)
     cur_in = torch.zeros_like(in_deg)
     mask = in_deg == 0
     ever = mask.clone()
+    rounds = 0
     while bool(mask.any()):
         delta, seen = kops.ell_propagate_batched(
             weight, mask.to(torch.float32), ell_src, ell_freq)
@@ -578,7 +582,8 @@ def _frontier_ell_weights(ell_src, ell_freq, in_deg) -> torch.Tensor:
         cur_in = cur_in + seen.to(torch.int32)
         mask = (cur_in == in_deg) & ~ever
         ever = ever | mask
-    return weight
+        rounds += 1
+    return weight, rounds
 
 
 def _leveled_ell_weights(ell_src, ell_freq, level,
@@ -611,40 +616,52 @@ def batched_top_down_weights(gb: GrammarBatch,
     Methods: ``frontier`` / ``leveled`` (COO + index_add_),
     ``frontier_ell`` / ``leveled_ell`` (dense ELL plan, one gather kernel
     per round), ``frontier_fused`` (the ELL frontier loop in one kernel
-    launch) and ``auto`` (``resolve_traversal_method``).
+    launch) and ``auto`` (``resolve_traversal_method``).  Each traversal
+    of an unsharded pack is metered by ``obs.traverse``.
     """
     method = resolve_batch_method(gb, method)
     if gb.mesh is not None:
         return gb.map_shards(lambda sub: batched_top_down_weights(sub,
                                                                   method))
+    with _traverse(method, per_file=False) as attrs:
+        w, attrs["host_rounds"] = _top_down_rounds(gb, method)
+    return w
+
+
+def _top_down_rounds(gb: GrammarBatch, method: str
+                     ) -> Tuple[torch.Tensor, int]:
+    """One resolved top-down method over an unsharded pack: ``(weights,
+    rounds that ended in a host sync)``."""
     if method in ("frontier", "top_down", "bottom_up"):
         return _frontier_weights(gb.edge_parent, gb.edge_child, gb.edge_freq,
-                                 gb.edge_valid, gb.in_deg)[0]
+                                 gb.edge_valid, gb.in_deg)
     if method == "leveled":
         return _leveled_weights(gb.lv_parent, gb.lv_child, gb.lv_freq,
-                                gb.lv_slices, gb.R_pad)
+                                gb.lv_slices, gb.R_pad), 0
     if method == "frontier_ell":
         src, freq, _, _ = gb.ell_plan()
         return _frontier_ell_weights(src, freq, gb.in_deg)
     if method == "leveled_ell":
         src, freq, level, num_levels = gb.ell_plan()
-        return _leveled_ell_weights(src, freq, level, num_levels)
+        return _leveled_ell_weights(src, freq, level, num_levels), 0
     if method == "frontier_fused":
         src, freq, _, num_levels = gb.ell_plan()
-        return _frontier_fused_weights(src, freq, gb.in_deg, num_levels)
+        return _frontier_fused_weights(src, freq, gb.in_deg, num_levels), 0
     raise ValueError(f"unknown batched traversal method {method!r}")
 
 
 def _per_file_frontier_weights(ep, ec, ef, valid, in_deg, root_seen,
                                fedge_child, fedge_file, fedge_freq,
-                               F: int) -> torch.Tensor:
+                               F: int) -> Tuple[torch.Tensor, int]:
     """Per-file masked frontier rounds over the COO edges; root edges are
-    consumed by the per-file init and pre-counted in ``root_seen``."""
+    consumed by the per-file init and pre-counted in ``root_seen``.
+    Returns ``(weights, rounds)``."""
     R = in_deg.shape[1]
     W = _per_file_init(fedge_child, fedge_file, fedge_freq, R, F)
     cur_in = root_seen.clone()
     mask = (root_seen == in_deg) & (in_deg > 0)
     ever = mask | (in_deg == 0)
+    rounds = 0
     while bool(mask.any()):
         active_e = torch.gather(mask, 1, ep) & valid & (ep != 0)
         gathered = _gather_rows(W, ep) * ef[:, :, None]
@@ -653,7 +670,8 @@ def _per_file_frontier_weights(ep, ec, ef, valid, in_deg, root_seen,
         cur_in = cur_in + _segment_sum(active_e.to(torch.int32), ec, R)
         mask = (cur_in == in_deg) & ~ever
         ever = ever | mask
-    return W
+        rounds += 1
+    return W, rounds
 
 
 def _per_file_leveled_weights(ep, ec, ef, fedge_child, fedge_file,
@@ -675,16 +693,18 @@ def _per_file_leveled_weights(ep, ec, ef, fedge_child, fedge_file,
 
 def _per_file_frontier_ell_weights(ell_src, ell_freq, in_deg, root_seen,
                                    fedge_child, fedge_file, fedge_freq,
-                                   F: int) -> torch.Tensor:
+                                   F: int) -> Tuple[torch.Tensor, int]:
     """Per-file frontier rounds over the dense ELL plan with the vector
     round (kernels.ops.ell_propagate_vector).  Root-edge exclusion is
     structural: the root is in ``ever`` from the start, so its mask entry is
-    never 1 and plan entries with src == 0 contribute nothing."""
+    never 1 and plan entries with src == 0 contribute nothing.  Returns
+    ``(weights, rounds)``."""
     R = in_deg.shape[1]
     W = _per_file_init(fedge_child, fedge_file, fedge_freq, R, F)
     cur_in = root_seen.clone()
     mask = (root_seen == in_deg) & (in_deg > 0)
     ever = mask | (in_deg == 0)
+    rounds = 0
     while bool(mask.any()):
         delta, seen = kops.ell_propagate_vector(
             W, mask.to(torch.float32), ell_src, ell_freq)
@@ -692,7 +712,8 @@ def _per_file_frontier_ell_weights(ell_src, ell_freq, in_deg, root_seen,
         cur_in = cur_in + seen.to(torch.int32)
         mask = (cur_in == in_deg) & ~ever
         ever = ever | mask
-    return W
+        rounds += 1
+    return W, rounds
 
 
 def _per_file_leveled_ell_weights(ell_src, ell_freq, level, fedge_child,
@@ -716,11 +737,21 @@ def batched_per_file_weights(gb: GrammarBatch,
 
     The ELL methods run the vector-payload rounds over the same dense plan
     as the scalar traversals; ``frontier_fused`` runs its per-round ELL base
-    here (the fused kernel is scalar-payload)."""
+    here (the fused kernel is scalar-payload).  Each traversal of an
+    unsharded pack is metered by ``obs.traverse``."""
     method = resolve_batch_method(gb, method, per_file=True)
     if gb.mesh is not None:
         return gb.map_shards(lambda sub: batched_per_file_weights(sub,
                                                                   method))
+    with _traverse(method, per_file=True) as attrs:
+        W, attrs["host_rounds"] = _per_file_rounds(gb, method)
+    return W
+
+
+def _per_file_rounds(gb: GrammarBatch, method: str
+                     ) -> Tuple[torch.Tensor, int]:
+    """One resolved per-file method over an unsharded pack: ``(weights,
+    rounds that ended in a host sync)``."""
     if method in ("frontier", "top_down", "bottom_up"):
         return _per_file_frontier_weights(
             gb.edge_parent, gb.edge_child, gb.edge_freq, gb.edge_valid,
@@ -729,7 +760,8 @@ def batched_per_file_weights(gb: GrammarBatch,
     if method == "leveled":
         return _per_file_leveled_weights(
             gb.lv_parent, gb.lv_child, gb.lv_freq, gb.fedge_child,
-            gb.fedge_file, gb.fedge_freq, gb.lv_slices, gb.R_pad, gb.F_pad)
+            gb.fedge_file, gb.fedge_freq, gb.lv_slices, gb.R_pad,
+            gb.F_pad), 0
     if method == "frontier_ell":
         src, freq, _, _ = gb.ell_plan()
         return _per_file_frontier_ell_weights(
@@ -739,7 +771,7 @@ def batched_per_file_weights(gb: GrammarBatch,
         src, freq, level, num_levels = gb.ell_plan()
         return _per_file_leveled_ell_weights(
             src, freq, level, gb.fedge_child, gb.fedge_file, gb.fedge_freq,
-            num_levels, gb.F_pad)
+            num_levels, gb.F_pad), 0
     raise ValueError(f"unknown batched traversal method {method!r}")
 
 
@@ -916,10 +948,17 @@ def _window_tokens(head, tail, weights, st_kind, st_lit, st_src, st_idx,
 def _count_windows_batched(head, tail, weights, st_kind, st_lit, st_src,
                            st_idx, st_symj, win_start, win_rule, win_valid,
                            l: int):
-    wtok, wweight = _window_tokens(head, tail, weights, st_kind, st_lit,
-                                   st_src, st_idx, st_symj, win_start,
-                                   win_rule, win_valid, l)
-    N, Nw, _ = wtok.shape
+    return _segment_windows(*_window_tokens(
+        head, tail, weights, st_kind, st_lit, st_src, st_idx, st_symj,
+        win_start, win_rule, win_valid, l))
+
+
+def _segment_windows(wtok, wweight):
+    """Sort each row's windows ``wtok [N, Nw, l]`` lexicographically and
+    sum the weights of equal ones: ``(stok, newseg, seg, counts)``, the
+    sorted windows, the first window of each segment, each window's
+    segment and each segment's count (``counts[:, s]``)."""
+    N, Nw, l = wtok.shape
     order = _lexsort_rows(wtok)
     stok = torch.gather(wtok, 1, order[:, :, None].expand(-1, -1, l))
     sw = torch.gather(wweight, 1, order)
@@ -928,7 +967,35 @@ def _count_windows_batched(head, tail, weights, st_kind, st_lit, st_src,
         (stok[:, 1:] != stok[:, :-1]).any(dim=2)], dim=1)
     seg = torch.cumsum(newseg, dim=1) - 1
     counts = _segment_sum(sw, seg, Nw)
-    return stok, seg, counts
+    return stok, newseg, seg, counts
+
+
+def distinct_grams(stok, newseg, seg, counts
+                   ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Per row of ``_count_windows_batched``'s output, the distinct l-grams
+    (int32 [U, l], lexicographic) and their counts (float32 [U]).
+
+    A gram is the first window of a segment whose count is above 0
+    (padded and invalid windows carry zero weight).  The selection, each
+    row's count of grams and the compaction run on the device.  The host
+    waits twice: for those counts, which size the answers, and in
+    ``host_copy.to_host``, which copies only the grams and their counts."""
+    n, nw, l = stok.shape
+    seg_count = torch.gather(counts, 1, seg)
+    keep = newseg & (seg_count > 0)
+    sizes = keep.sum(1).tolist()
+    total = sum(sizes)
+    # each kept window scatters its flat position to its rank among the
+    # kept ones, every other window to one spare slot past the end
+    flat = keep.reshape(-1)
+    rank = torch.where(flat, torch.cumsum(flat, 0) - 1, total)
+    pos = torch.empty(total + 1, dtype=torch.int64, device=stok.device)
+    pos.scatter_(0, rank, torch.arange(n * nw, device=stok.device))
+    pos = pos[:total]
+    grams, cnts = to_host((stok.reshape(-1, l)[pos].to(torch.int32),
+                           seg_count.reshape(-1)[pos]))
+    ends = np.cumsum(sizes)
+    return [(grams[e - k: e], cnts[e - k: e]) for k, e in zip(sizes, ends)]
 
 
 def _padded_sequence_plans(gb: GrammarBatch, l: int):
@@ -995,8 +1062,9 @@ def batched_sequence_count(gb: GrammarBatch, l: int = 3,
                            ) -> List[Tuple[np.ndarray, np.ndarray]]:
     """Per corpus (grams [U, l] int32, counts [U] float32), grams sorted
     lexicographically — head/tail resolution, stream gathers, window
-    sorting and segment reduction run batched; only the final distinct-gram
-    extraction is per corpus (ragged output)."""
+    sorting, segment reduction and the distinct-gram extraction run
+    batched on the pack's device; only the answers reach the host
+    (``distinct_grams``)."""
     if l < 2:
         raise ValueError("sequence_count needs l >= 2")
     if gb.mesh is not None:
@@ -1004,18 +1072,8 @@ def batched_sequence_count(gb: GrammarBatch, l: int = 3,
         return gb.map_shards(lambda sub: batched_sequence_count(sub, l, m))
     weights = batched_top_down_weights(gb, method=method)
     head, tail, stream = _padded_sequence_plans(gb, l)
-    stok, seg, counts = _count_windows_batched(head, tail, weights,
-                                               *stream, l)
-    stok_h, seg_h, counts_h = to_host((stok, seg, counts))
-    out: List[Tuple[np.ndarray, np.ndarray]] = []
-    for i in range(gb.n):
-        n_seg = int(seg_h[i, -1]) + 1
-        first_idx = np.searchsorted(seg_h[i], np.arange(n_seg), "left")
-        grams = stok_h[i][first_idx]
-        cnts = counts_h[i, :n_seg]
-        keep = cnts > 0           # padded / invalid windows carry zero weight
-        out.append((grams[keep].astype(np.int32), cnts[keep]))
-    return out
+    return distinct_grams(*_count_windows_batched(head, tail, weights,
+                                                  *stream, l))
 
 
 # ----------------------------------------------------------------------- #

@@ -25,7 +25,6 @@ import torch
 from repro_torch.kernels._common import resolve_device
 
 from .grammar import GrammarArrays
-from .host_copy import to_host
 
 _GAP = -1
 _BREAK = -2
@@ -257,7 +256,7 @@ def sequence_count(ga: GrammarArrays, l: int = 3, method: str = "frontier",
     windows (sequences never span files).  ``weights`` lets callers reuse a
     memoized traversal on the same device (must equal
     ``top_down_weights(ga)``)."""
-    from .batch import _count_windows_batched
+    from .batch import _count_windows_batched, distinct_grams
     from .traversal import top_down_weights
 
     if l < 2:
@@ -277,17 +276,10 @@ def sequence_count(ga: GrammarArrays, l: int = 3, method: str = "frontier",
     def put(a, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, dtype), device=dev)[None]
 
-    stok, seg, counts = _count_windows_batched(
+    return distinct_grams(*_count_windows_batched(
         head[None], tail[None], weights[None], put(sp.st_kind, np.int8),
         put(sp.st_lit, np.int32), put(sp.st_src, np.int64),
         put(sp.st_idx, np.int64), put(sp.st_symj, np.int32),
         put(sp.win_start, np.int64), put(sp.win_rule, np.int64),
-        torch.ones((1, len(sp.win_start)), dtype=torch.bool, device=dev), l)
-    stok, seg, counts = to_host((stok[0], seg[0], counts[0]))
-    n_seg = int(seg[-1]) + 1
-    # representative token tuple of each segment = first row of the segment
-    first_idx = np.searchsorted(seg, np.arange(n_seg), "left")
-    grams = stok[first_idx]
-    cnts = counts[:n_seg]
-    keep = cnts > 0
-    return grams[keep].astype(np.int32), cnts[keep]
+        torch.ones((1, len(sp.win_start)), dtype=torch.bool, device=dev),
+        l))[0]

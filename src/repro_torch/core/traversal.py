@@ -96,7 +96,8 @@ def _top_down_frontier_ell(ga: GrammarArrays,
         return _top_down_frontier(ga, dev)[0]
     gb = device_pack(ga, dev)
     src, freq, _, _ = gb.ell_plan()
-    return _batch._frontier_ell_weights(src, freq, gb.in_deg)[0]
+    w, _ = _batch._frontier_ell_weights(src, freq, gb.in_deg)
+    return w[0]
 
 
 def _top_down_frontier_fused(ga: GrammarArrays,
@@ -185,17 +186,19 @@ def per_file_weights(ga: GrammarArrays, method: str = "frontier",
     if method in ("frontier_ell", "leveled_ell"):
         src, freq, level, num_levels = gb.ell_plan()
         if method == "frontier_ell":
-            return _batch._per_file_frontier_ell_weights(
-                src, freq, gb.in_deg, gb.root_seen, fc, ff, fq, F)[0]
+            W, _ = _batch._per_file_frontier_ell_weights(
+                src, freq, gb.in_deg, gb.root_seen, fc, ff, fq, F)
+            return W[0]
         return _batch._per_file_leveled_ell_weights(
             src, freq, level, fc, ff, fq, num_levels, F)[0]
     if method == "leveled":
         return _batch._per_file_leveled_weights(
             gb.lv_parent, gb.lv_child, gb.lv_freq, fc, ff, fq, gb.lv_slices,
             ga.num_rules, F)[0]
-    return _batch._per_file_frontier_weights(
+    W, _ = _batch._per_file_frontier_weights(
         gb.edge_parent, gb.edge_child, gb.edge_freq, gb.edge_valid,
-        gb.in_deg, gb.root_seen, fc, ff, fq, F)[0]
+        gb.in_deg, gb.root_seen, fc, ff, fq, F)
+    return W[0]
 
 
 # ----------------------------------------------------------------------- #

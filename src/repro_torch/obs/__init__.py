@@ -14,8 +14,8 @@ its serving metrics.
 
 from .registry import DEFAULT_BUCKETS, MetricsRegistry, global_registry
 from .tracing import (BoundedLog, Span, activate, current, current_clock,
-                      plan_stage, span, span_problems)
+                      plan_stage, span, span_problems, traverse)
 
 __all__ = ["MetricsRegistry", "DEFAULT_BUCKETS", "global_registry",
            "Span", "span", "activate", "current", "current_clock",
-           "plan_stage", "BoundedLog", "span_problems"]
+           "plan_stage", "traverse", "BoundedLog", "span_problems"]

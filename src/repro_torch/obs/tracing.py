@@ -20,6 +20,12 @@ disjoint trees.
 When no span is active, ``plan_stage`` still feeds the global
 ``repro_plan_build_seconds`` histogram and costs one contextvar read
 otherwise — instrumentation must be safe to leave on everywhere.
+``traverse`` (the packed engine's traversals, core/batch.py) follows the
+same rule: a ``traverse`` span {method, per_file, host_rounds} under the
+execution stage (compile or execute) when traced, and the global
+``repro_engine_traversals_total`` and ``repro_engine_host_rounds_total``
+counters either way.  The single-corpus engine of a store
+(core/traversal.py) records neither.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from __future__ import annotations
 import math
 import time
 from collections import deque
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from contextvars import ContextVar
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
@@ -35,7 +41,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 from .registry import global_registry
 
 __all__ = ["Span", "span", "activate", "current", "current_clock",
-           "plan_stage", "BoundedLog", "span_problems"]
+           "plan_stage", "traverse", "BoundedLog", "span_problems"]
 
 
 @dataclass
@@ -152,6 +158,39 @@ def plan_stage(plan: str):
             "repro_plan_build_seconds",
             "host-side plan construction per lazy pack memo",
             ("plan",)).labels(plan).observe(t1 - t0)
+
+
+@contextmanager
+def traverse(method: str, per_file: bool):
+    """Instrument one traversal of the packed engine (core/batch.py
+    ``batched_top_down_weights`` / ``batched_per_file_weights``, on each
+    unsharded pack or shard) under its resolved ``method``.
+
+    Yields the attrs ``method``, ``per_file`` and ``host_rounds``; the body
+    sets ``host_rounds`` to the masked rounds that each ended in the host
+    reading a flag off the device (the ``frontier`` and ``frontier_ell``
+    loops; 0 for the leveled schedules and for ``frontier_fused``, whose
+    loop runs on the card).  Under an active span they are the attrs of a
+    ``traverse`` child, ambient inside the block, so a plan the traversal
+    builds nests under it; untraced, the hook costs one contextvar read.
+    On success it always adds to the global
+    ``repro_engine_traversals_total`` and
+    ``repro_engine_host_rounds_total{method, per_file}`` counters."""
+    attrs = {"method": method, "per_file": per_file, "host_rounds": 0}
+    traced = current() is not None
+    with (span("traverse", attrs=attrs) if traced else nullcontext()) as s:
+        if s is not None:
+            attrs = s.attrs
+        yield attrs
+    labels = (method, "true" if per_file else "false")
+    reg = global_registry()
+    reg.counter("repro_engine_traversals_total",
+                "traversals of the packed engine by resolved method",
+                ("method", "per_file")).labels(*labels).inc()
+    reg.counter("repro_engine_host_rounds_total",
+                "traversal rounds that ended in a host sync",
+                ("method", "per_file")).labels(*labels).inc(
+                    attrs["host_rounds"])
 
 
 class BoundedLog:

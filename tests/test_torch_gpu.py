@@ -758,12 +758,9 @@ def test_answers_land_pinned_and_the_callers_own_on_card(cuda):
         first = card.run(qs)
         copied = card.stats.host_copy_bytes["pinned"] - pinned0
         parts = _answer_parts(first)
-        if kind == "sequence_count":
-            # grams and counts are cut on the host from the copied windows
-            assert copied > 0
-        else:
-            assert copied == sum(p.nbytes for p in parts), kind
-            assert all(torch.from_numpy(p).is_pinned() for p in parts), kind
+        # sequence_count too: its grams and counts are cut on the card
+        assert copied == sum(p.nbytes for p in parts), kind
+        assert all(torch.from_numpy(p).is_pinned() for p in parts), kind
         assert card.stats.host_copy_bytes["pageable"] == 0
         held = [p.copy() for p in parts]
         second = card.run(qs)

@@ -177,8 +177,9 @@ def test_chip_smoke_fails_without_card_or_checkout(where, tmp_path):
 
 def test_metrics_record_ingest_plans_and_dispatch():
     """The port meters what the JAX package meters on its process
-    registry: Sequitur ingest, plan builds (attached to the ambient span)
-    and kernel dispatch decisions."""
+    registry: Sequitur ingest, plan builds (attached to the ambient span:
+    here the traversal that needed the plan) and kernel dispatch
+    decisions."""
     reg = global_registry()
     files = reg.counter("repro_ingest_files_total")
     before_files = files.value
@@ -193,8 +194,9 @@ def test_metrics_record_ingest_plans_and_dispatch():
     with span("request") as root:
         run_batched(gb, "word_count", "leveled_ell")
     assert plans.count == before_plans + 1
-    assert [c.name for c in root.children] == ["plan:ell"]
-    assert root.children[0].finished
+    assert [c.name for c in root.children] == ["traverse"]
+    assert [c.name for c in root.children[0].children] == ["plan:ell"]
+    assert root.children[0].children[0].finished
     assert execs.value > before_execs
     with pytest.raises(ValueError, match="already registered"):
         reg.histogram("repro_kernel_dispatch_total")

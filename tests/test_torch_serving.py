@@ -41,10 +41,12 @@ from repro.core import compress_files as jcompress, flatten as jflatten
 from repro.data import CompressedCorpus as JCorpus
 import repro.serving as js
 from repro_torch.core import GrammarArrays, GrammarBatch, StaleGrammarError
-from repro_torch.core.batch import ANALYTICS_KINDS, METHODS, run_batched
+from repro_torch.core import batch as tbatch
+from repro_torch.core.batch import (ANALYTICS_KINDS, METHODS,
+                                    PER_FILE_KINDS, run_batched)
 from repro_torch.data import CompressedCorpus
 from repro_torch.distributed import corpus_mesh, mesh_size
-from repro_torch.obs import span_problems
+from repro_torch.obs import MetricsRegistry, global_registry, span_problems
 import repro_torch.serving as ts
 
 from _hypothesis_compat import given, settings, st
@@ -593,3 +595,73 @@ def test_method_fallbacks_match_the_reference(corpora, method, monkeypatch):
         _same(g, w, f"{method} query {i}")
     assert _stats(tsrv) == _stats(jsrv)
     assert sum(tsrv.stats.method_fallbacks.values()) > 0
+
+
+# ------------------------------------------------------- traversal spans --
+def _traversal_counts(method: str, per_file: bool):
+    """(traversals, host rounds) the process registry has counted."""
+    reg = global_registry()
+    labels = (method, "true" if per_file else "false")
+    return tuple(reg.counter(name, "", ("method", "per_file"))
+                 .labels(*labels).value
+                 for name in ("repro_engine_traversals_total",
+                              "repro_engine_host_rounds_total"))
+
+
+@pytest.mark.parametrize("method", ["frontier", "frontier_fused"])
+def test_traverse_spans_and_counters(corpora, method):
+    """A traced run records one ``traverse`` span a traversal, under the
+    chunk's execution stage, naming the resolved method, the payload and
+    the rounds that ended in a host sync (those ``_frontier_weights`` and
+    its per-file twin ran on the same pack, one a level of the deepest
+    DAG; 0 for the fused loop, which runs on the device); an untraced
+    server records no span; the process registry counts both."""
+    gas = [CompressedCorpus.build(files, v).ga for files, v in corpora[:3]]
+    gb = GrammarBatch.build(gas, device="cpu")
+    coo = (gb.edge_parent, gb.edge_child, gb.edge_freq, gb.edge_valid,
+           gb.in_deg)
+    roots = (gb.root_seen, gb.fedge_child, gb.fedge_file, gb.fedge_freq,
+             gb.F_pad)
+    if method == "frontier":
+        want = {False: ("frontier", tbatch._frontier_weights(*coo)[1]),
+                True: ("frontier",
+                       tbatch._per_file_frontier_weights(*coo, *roots)[1])}
+    else:                       # the fused kernel is scalar
+        src, freq, _, _ = gb.ell_plan()
+        want = {False: ("frontier_fused", 0),
+                True: ("frontier_ell", tbatch._per_file_frontier_ell_weights(
+                    src, freq, gb.in_deg, *roots)[1])}
+    depth = max(ga.num_levels for ga in gas)
+    for per_file, (m, rounds) in want.items():
+        assert tbatch.resolve_batch_method(gb, method, per_file) == m
+        # a round a level of the deepest DAG; the per-file init takes
+        # the root's
+        assert rounds == (0 if m == "frontier_fused" else depth - per_file)
+    traced = ts.AnalyticsServer(max_batch=4, method=method, device="cpu")
+    quiet = ts.AnalyticsServer(max_batch=4, method=method, device="cpu",
+                               registry=MetricsRegistry(enabled=False))
+    for srv in (traced, quiet):
+        for i, ga in enumerate(gas):
+            srv.register(f"c{i}", ga)
+    for kind in ("word_count", "term_vector", "sequence_count"):
+        per_file = kind in PER_FILE_KINDS
+        m, rounds = want[per_file]
+        for srv in (traced, quiet):
+            before = _traversal_counts(m, per_file)
+            qs = [ts.Query(f"c{i}", kind) for i in range(len(gas))]
+            srv.run(qs)
+            assert _traversal_counts(m, per_file) == (before[0] + 1,
+                                                      before[1] + rounds)
+            if srv is quiet:
+                assert all(q.trace is None for q in qs)
+                continue
+            for q in qs:
+                assert span_problems(q.trace, require=("traverse",)) == []
+                spans = q.trace.find("traverse")
+                assert [(s.attrs["method"], s.attrs["per_file"],
+                         s.attrs["host_rounds"]) for s in spans] == [
+                    (m, per_file, rounds)], kind
+                stage = [s for s in q.trace.walk()
+                         if spans[0] in s.children]
+                assert [s.name for s in stage] in (["compile"],
+                                                   ["execute"])
