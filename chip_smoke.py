@@ -9,7 +9,7 @@ run from the root of a checkout, on a machine with one Hopper card and the
 CUDA toolkit.  Phases:
 
 1. Set-up: print the card's name and power limit (nvidia-smi), build the
-   five CUDA kernels from ``src/repro_torch/kernels/csrc`` and print the
+   six CUDA kernels from ``src/repro_torch/kernels/csrc`` and print the
    build seconds.
 2. Data: 16 synthetic corpora (64 files x 4000 tokens, vocab 20,000,
    Zipfian words with 60% repeated phrases) from a fixed seed, compressed
@@ -54,7 +54,7 @@ CUDA toolkit.  Phases:
    held to the routing ``resolve_batch_method`` gives each chunk.  Then
    the same queries go through ``AsyncAnalyticsServer`` from four threads
    with deadlines: equal to the sync answers, nothing shed, flush reasons
-   printed.  Kernels 1, 2 and 3 must each launch here (``serve_launches``
+   printed.  Kernels 1, 2, 3 and 6 must each launch here (``serve_launches``
    in each record).
 5. Checkpoint, with launch counts zeroed just before and read just after:
    the single corpus built from 75% of its files and grown by one append
@@ -63,7 +63,7 @@ CUDA toolkit.  Phases:
    remaining files after the restore equals the same append on the
    unbroken store and a build of all files, and the restored corpus's six
    analytics (``frontier_fused``, kernel histogram) are exact against the
-   oracle.  Kernels 2 and 4 must launch here.
+   oracle.  Kernels 2, 4 and 6 must launch here.
 6. Sharding, counts zeroed just before and read just after: the pack's
    corpora over corpus meshes of 2 and 3 shards on the one card
    (``corpus_mesh(("cuda:0",) * k)``; 3 pads 16 corpora to 18) and, with
@@ -75,7 +75,7 @@ CUDA toolkit.  Phases:
    ELL rounds and kernel histogram over 2 shards, then one
    ``AnalyticsServer(mesh=..., shard_min_corpora=2)`` a mesh serving the
    11 kinds to every pack corpus, exact, with ``sharded_calls > 0``.
-   Kernels 1-4 must launch here.
+   Kernels 1-4 and 6 must launch here.
 7. Kernels: each kernel at the main path's shapes against its plain torch
    version on the same card inputs (exact equality: all values are
    integer-valued float32 below 2^24), timed with CUDA events around one
@@ -91,7 +91,11 @@ CUDA toolkit.  Phases:
    (``batched_*`` fields).  The fused frontier kernel is timed at the pack
    and again on the single corpus's N=1 plan (extra ``single_*`` fields of
    its record), each with the grid of its cooperative launch and a
-   breakdown (the kernel cut to one round against the whole loop).
+   breakdown (the kernel cut to one round against the whole loop).  The
+   file ranking (kernel 6) ranks the word-major term vectors the engine
+   builds for the pack (64 files a word: a warp a word), and again for the
+   subset (a group of lanes a word) and the single corpus (256 files:
+   extra ``subset_*`` and ``single_*`` fields of its record).
 8. Autotune, counts zeroed just before and read just after: every
    kernel's launch shapes swept (``kernels/autotune.py``) at the shapes of
    the pack, the subset and the single corpus that its main path runs,
@@ -232,10 +236,10 @@ SERVE_IDLE = 1.0
 SERVE_DEADLINE = 600.0
 # the kernels the serving path must launch
 SERVE_KERNELS = ("ell_propagate_batched", "ell_frontier_fused",
-                 "ell_propagate_vector")
+                 "ell_propagate_vector", "rank_files")
 
 # the checkpoint phase (phase 5): the kernels its analytics must launch
-CKPT_KERNELS = ("ell_frontier_fused", "weighted_bincount")
+CKPT_KERNELS = ("ell_frontier_fused", "weighted_bincount", "rank_files")
 # the LM serving phase (phase 9): qwen2-0.5b at its published widths
 LM_ARCH = "qwen2-0.5b"
 LM_SEED = 0
@@ -254,7 +258,11 @@ TOPK_ROUTER_SHAPE, TOPK_ROUTER_K = (8, 16, 60), 4
 SHARD_COUNTS = (2, 3)
 SHARD_METHODS = ("frontier", "frontier_ell", "frontier_fused")
 SHARD_KERNELS = ("ell_propagate_batched", "ell_frontier_fused",
-                 "ell_propagate_vector", "weighted_bincount")
+                 "ell_propagate_vector", "weighted_bincount", "rank_files")
+# the autotune phase (phase 8): the kernels with launch shapes to sweep
+# (the file ranking has none)
+TUNED_KERNELS = ("ell_propagate_batched", "ell_frontier_fused",
+                 "ell_propagate_vector", "weighted_bincount", "ell_row_sums")
 
 # the training phase (phase 10): qwen2-0.5b; (a) float32, published
 # widths, two layers, card vs CPU; (b) bf16, published widths and depth,
@@ -1082,7 +1090,7 @@ def kernel_phase(gb, sub, single, dev):
     """Each kernel at the main path's shapes against its plain version."""
     import torch
     from repro_torch.core import batch as tb
-    from repro_torch.core.traversal import device_pack
+    from repro_torch.core.traversal import device_pack, per_file_weights
     from repro_torch.kernels import ops, ref
 
     out = []
@@ -1283,6 +1291,44 @@ def kernel_phase(gb, sub, single, dev):
            time_ms(bag, dev))
     log(f"[kernel] ell_row_sums shape: rows={rsrc.shape[0]} "
         f"W={rsrc.shape[1]} edges={redges}")
+
+    # 6. each word's files ranked, on the word-major term vector the
+    #    engine builds (batched_ranked_inverted_index)
+    def rank_case(pack, Wf):
+        tv = tb.word_major_term_vector(pack, Wf)
+        nf, vs = pack.num_files, pack.vocab_sizes
+        got = [t for pair in ops.rank_files(tv, nf, vs) for t in pair]
+        want = [t for pair in ref.rank_files_ref(tv, nf, vs) for t in pair]
+        real = sum(int(v) * int(f) for v, f in zip(vs, nf))
+        # each real count read once, each id and count written once
+        return (list(tv.shape), real, got, want,
+                lambda: ops.rank_files(tv, nf, vs),
+                time_ms(lambda: ref.rank_files_ref(tv, nf, vs), dev),
+                bound(12 * real, 0))
+    shape, real, got, want, fn, plain_ms, b = rank_case(
+        gb, tb.batched_per_file_weights(gb, "frontier"))
+    record("rank_files", "rank_files.cu",
+           "src/repro/core/batch.py:997 (jnp.argsort, no Pallas kernel)",
+           got, want, fn, plain_ms, b)
+    log(f"[kernel] rank_files pack shape: {shape} (N, V_pad, F_pad), "
+        f"{real} real entries")
+    for label, pack, Wf in (("subset", sub, W),
+                            ("single", device_pack(ga, dev),
+                             per_file_weights(ga, device=dev)[None])):
+        shape, real, got, want, fn, plain_ms, b = rank_case(pack, Wf)
+        check(all(torch.equal(g, p) for g, p in zip(got, want)),
+              f"rank_files {label}: kernel differs from its plain version")
+        ms = time_ms(fn, dev)
+        dev_ms, host_us, dev_ops = device_split(fn, dev)
+        out[-1].update({f"{label}_shape": shape, f"{label}_ms": ms,
+                        f"{label}_device_ms": dev_ms,
+                        f"{label}_host_us": host_us,
+                        f"{label}_plain_ms": plain_ms,
+                        f"{label}_bound_ms": b[0]})
+        log(f"[kernel] rank_files {label}: exact; {ms:.5g} ms (device "
+            f"{dev_ms} ms: {dev_ops}; host {host_us} us a call; plain "
+            f"{plain_ms:.5g} ms, bound {b[0]:.5g} ms by {b[1]}); shape "
+            f"{shape}, {real} real entries")
     return out
 
 
@@ -2884,7 +2930,7 @@ def main() -> int:
             ("serve_launches", "the serving path", SERVE_KERNELS),
             ("ckpt_launches", "the checkpoint phase", CKPT_KERNELS),
             ("shard_launches", "the sharding phase", SHARD_KERNELS),
-            ("autotune_launches", "the autotune phase", None)):
+            ("autotune_launches", "the autotune phase", TUNED_KERNELS)):
         missing = [r["name"] for r in records if r[field] <= 0
                    and (needed is None or r["name"] in needed)]
         if missing:

@@ -26,6 +26,7 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels._common import resolve_device
 
+from .batch import word_major_term_vector
 from .grammar import GrammarArrays
 from .traversal import device_pack, per_file_weights, top_down_weights
 from . import sequence as _sequence
@@ -124,12 +125,21 @@ def ranked_inverted_index(ga: GrammarArrays, method: str = "auto",
                           device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """For each word: files ranked by frequency (desc, ties by file id),
     with counts.  Returns (ranking [V, F] int32 file ids, counts [V, F]
-    aligned to the ranking)."""
-    tv = term_vector(ga, method=method, file_weights=file_weights,
-                     device=device)                           # [F, V]
-    order = torch.argsort(-tv, dim=0, stable=True)            # [F, V]
-    ranked = torch.take_along_dim(tv, order, dim=0)           # [F, V]
-    return order.T.to(torch.int32), ranked.T
+    aligned to the ranking).
+
+    The term vector is read word-major, ``[1, V, F]`` as the packed
+    engine builds it on the one-corpus pack
+    (``batch.word_major_term_vector``), and ``kernels.ops.rank_files``
+    ranks it: the packed engine's op, one kernel launch on the card."""
+    dev = resolve_device(device)
+    if file_weights is None:
+        file_weights = per_file_weights(ga, method=_pick(ga, method),
+                                        device=dev)          # [R, F]
+    Wf = _on(file_weights, dev, "file_weights")
+    gb = device_pack(ga, dev)
+    (ranking, counts), = kops.rank_files(
+        word_major_term_vector(gb, Wf[None]), gb.num_files, gb.vocab_sizes)
+    return ranking, counts
 
 
 def sequence_count(ga: GrammarArrays, l: int = 3, method: str = "auto",

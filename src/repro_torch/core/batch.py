@@ -818,11 +818,18 @@ def batched_sort_words(gb: GrammarBatch, method: str = "frontier",
     return out
 
 
+def _rule_counts(Wf, tw_rule, tw_word, tw_cnt, V: int) -> torch.Tensor:
+    """tv[i, v, f]: word v's occurrences in file f of corpus i through the
+    rules, word-major ``[N, V, F]`` as the segment sum writes it (the
+    words each file's root holds directly are not yet added)."""
+    contrib = _gather_rows(Wf, tw_rule) * tw_cnt[:, :, None]    # [N, T, F]
+    return _segment_sum(contrib, tw_word, V)                     # [N, V, F]
+
+
 def _term_vector_from_weights(Wf, tw_rule, tw_word, tw_cnt, fword_file,
                               fword_word, fword_cnt, V: int) -> torch.Tensor:
-    N, _, F = Wf.shape
-    contrib = _gather_rows(Wf, tw_rule) * tw_cnt[:, :, None]    # [N, T, F]
-    tv = _segment_sum(contrib, tw_word, V)                       # [N, V, F]
+    F = Wf.shape[2]
+    tv = _rule_counts(Wf, tw_rule, tw_word, tw_cnt, V)           # [N, V, F]
     tv = tv.transpose(1, 2).contiguous()                         # [N, F, V]
     tv.view(-1).index_add_(0, _flat_index(fword_file * V + fword_word,
                                           F * V),
@@ -847,22 +854,41 @@ def batched_inverted_index(gb: GrammarBatch,
     return batched_term_vector(gb, method=method) > 0
 
 
+def word_major_term_vector(gb: GrammarBatch,
+                           Wf: torch.Tensor) -> torch.Tensor:
+    """tv[i, v, f] — word v's occurrences in file f of corpus i, from the
+    per-file weights ``Wf [N, R_pad, F]``: word-major ``[N, V_pad, F]`` as
+    the segment sum writes it, with each file's root words added at ``word
+    * F + file`` (integer-valued float32, so the order of the adds cannot
+    change a count).  With no files it is the empty ``[N, V_pad, 0]`` (the
+    pack's padding entries would scatter out of an empty table)."""
+    F = Wf.shape[2]
+    if F == 0:
+        return torch.zeros((gb.n, gb.V_pad, 0), dtype=torch.float32,
+                           device=Wf.device)
+    tv = _rule_counts(Wf, gb.tw_rule, gb.tw_word, gb.tw_cnt, gb.V_pad)
+    tv.view(-1).index_add_(0, _flat_index(gb.fword_word * F + gb.fword_file,
+                                          gb.V_pad * F),
+                           gb.fword_cnt.reshape(-1))
+    return tv
+
+
 def batched_ranked_inverted_index(gb: GrammarBatch, method: str = "frontier"
                                   ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Per corpus (ranking [V, F] int32, counts [V, F]) — true per-corpus
-    shapes, files ranked by count desc, ties by file id (stable)."""
+    shapes, files ranked by count desc, ties by file id (stable).
+
+    The term vector stays word-major (:func:`word_major_term_vector`,
+    ``[N, V_pad, F_pad]``), and ``kernels.ops.rank_files`` ranks every
+    corpus's words from that layout in one call (one kernel launch on the
+    card)."""
     if gb.mesh is not None:
         m = resolve_batch_method(gb, method, per_file=True)
         return gb.map_shards(lambda sub: batched_ranked_inverted_index(sub,
                                                                        m))
-    tv = batched_term_vector(gb, method=method)
-    out = []
-    for i, ga in enumerate(gb.gas):
-        tvi = tv[i, : ga.num_files, : ga.vocab_size]
-        order = torch.argsort(-tvi, dim=0, stable=True)
-        ranked = torch.take_along_dim(tvi, order, dim=0)
-        out.append((order.T.to(torch.int32), ranked.T))
-    return out
+    tv = word_major_term_vector(gb, batched_per_file_weights(gb,
+                                                             method=method))
+    return kops.rank_files(tv, gb.num_files, gb.vocab_sizes)
 
 
 def unbatch(gb: GrammarBatch, packed: torch.Tensor,

@@ -5,6 +5,8 @@
 #   propagate_vector.py  — one vector-payload (per-file) ELL round
 #   bincount.py          — weighted histogram (global result update)
 #   propagate.py         — ELL gather row sums of one corpus
+#   rank_files.py        — each word's files ranked by count (no Pallas
+#                          kernel: the JAX package's jnp.argsort)
 # ops.py: device-routed wrappers + ELL-vs-segment_sum predicates;
 # ref.py: plain torch versions (the CPU path and the kernels' oracles);
 # _common.py: device policy, the nvcc build, launch counters.

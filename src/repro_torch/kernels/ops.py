@@ -37,12 +37,13 @@ from .propagate_batched import ell_propagate_batched_cuda
 from .propagate import ell_row_sums_cuda
 from .propagate_fused import ell_frontier_fused_cuda
 from .propagate_vector import ell_propagate_vector_cuda
+from .rank_files import rank_files_cuda
 
 __all__ = [
     "weighted_bincount", "weighted_bincount_batched", "ell_row_sums",
     "ell_propagate_batched", "ell_propagate_vector", "ell_frontier_fused",
     "bincount_batch_rows", "ell_batched_use_ref", "ell_fused_use_kernel",
-    "ell_vector_plan_ok", "masked_top_k",
+    "ell_vector_plan_ok", "masked_top_k", "rank_files",
 ]
 
 # weighted_bincount_batched flattens [N, T] ids into N*nbins disjoint bins;
@@ -336,6 +337,27 @@ def ell_frontier_fused(weights0: torch.Tensor, in_deg: torch.Tensor,
         w, rounds = ell_frontier_fused_cuda(weights0, in_deg, src, freq,
                                             max_rounds, **blocks)
     return (w, rounds) if with_rounds else w
+
+
+def rank_files(tv: torch.Tensor, num_files, vocab_size):
+    """Each word's files ranked by count: per corpus i, ``(ranking
+    [vocab_size[i], num_files[i]] int32, counts aligned to it)`` of the
+    word-major term vector ``tv [N, V_pad, F_pad]`` (counts descending,
+    ties to the lower file id, files past ``num_files[i]`` left out).
+
+    A CUDA tensor launches the kernel (one launch for the pack, any
+    ``F_pad``, contiguous outputs), a CPU tensor takes the plain version.
+    Each call is metered on ``repro_kernel_dispatch_total
+    {decision="rank_files", path="kernel" | "plain"}``."""
+    if tv.ndim != 3:
+        raise ValueError(f"expected an [N, V_pad, F_pad] term vector, got "
+                         f"{tuple(tv.shape)}")
+    if not _common.on_cuda(tv):
+        _count_dispatch("rank_files", "plain")
+        return ref.rank_files_ref(tv, num_files, vocab_size)
+    _count_dispatch("rank_files", "kernel")
+    return rank_files_cuda(tv.to(torch.float32).contiguous(), num_files,
+                           vocab_size)
 
 
 def masked_top_k(scores: torch.Tensor, valid: torch.Tensor, k: int):

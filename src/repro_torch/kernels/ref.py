@@ -1,6 +1,7 @@
-"""Plain torch versions of the five kernels (the JAX package's
-``kernels/ref.py``): the oracles the CUDA kernels are held against, and the
-only path a CPU tensor takes.  Nothing on the CUDA path calls them.
+"""Plain torch versions of the kernels (the JAX package's ``kernels/ref.py``,
+plus the file ranking it does with ``jnp.argsort``): the oracles the CUDA
+kernels are held against, and the only path a CPU tensor takes.  Nothing on
+the CUDA path calls them.
 
 Integer-valued float32 inputs (every value on the engine path) give the
 same sums in any order, so these match the JAX references and the CUDA
@@ -8,6 +9,8 @@ kernels bit for bit there; on arbitrary floats the summation order differs.
 """
 
 from __future__ import annotations
+
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -109,3 +112,20 @@ def ell_frontier_fused_ref(weights0: torch.Tensor, in_deg: torch.Tensor,
         mask = ready
         ever = ever + ready
     return w, rounds
+
+
+def rank_files_ref(tv: torch.Tensor, num_files: Sequence[int],
+                   vocab_size: Sequence[int]
+                   ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Per corpus i, ``(ranking [vocab_size[i], num_files[i]] int32,
+    counts [vocab_size[i], num_files[i]])`` of the ``[N, V_pad, F_pad]``
+    term vector: each word's real files by count descending, ties to the
+    lower file id (a stable argsort of the negated counts over an ``[F,
+    V]`` view)."""
+    out = []
+    for i, (nf, v) in enumerate(zip(num_files, vocab_size)):
+        x = tv[i, : int(v), : int(nf)].T                          # [F, V]
+        order = torch.argsort(-x, dim=0, stable=True)
+        ranked = torch.take_along_dim(x, order, dim=0)
+        out.append((order.T.to(torch.int32), ranked.T))
+    return out

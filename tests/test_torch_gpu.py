@@ -447,7 +447,7 @@ def test_engine_on_card_matches_cpu(cuda):
     counts = _common.launch_counts()
     assert all(counts[name] > 0 for name in (
         "ell_propagate_batched", "ell_frontier_fused",
-        "ell_propagate_vector", "weighted_bincount")), counts
+        "ell_propagate_vector", "weighted_bincount", "rank_files")), counts
 
 
 def _single_corpus():
@@ -508,7 +508,8 @@ def test_single_corpus_on_card_matches_cpu(cuda):
     counts = _common.launch_counts()
     assert all(counts[name] > 0 for name in (
         "ell_propagate_batched", "ell_frontier_fused",
-        "ell_propagate_vector", "weighted_bincount", "ell_row_sums")), counts
+        "ell_propagate_vector", "weighted_bincount", "ell_row_sums",
+        "rank_files")), counts
 
 
 def test_store_on_card(cuda, tmp_path):
@@ -602,6 +603,154 @@ def test_masked_top_k_ties_on_card(cuda, seeded_rng):
     np.testing.assert_array_equal(idx.cpu().numpy(), order)
     np.testing.assert_array_equal(vals.cpu().numpy(),
                                   np.take_along_axis(masked, order, 1))
+
+
+def _rank_inputs(rng, f_pad, num_files, v_pad=300):
+    """[N, V_pad, F_pad] integer-valued counts with heavy ties and many
+    zeros, one word per corpus that no file holds, unequal vocabularies,
+    and junk past each corpus's files and words."""
+    n = len(num_files)
+    vocab = [int(v_pad - 37 * i) for i in range(n)]
+    tv = rng.integers(0, 4, (n, v_pad, f_pad)).astype(np.float32)
+    tv[rng.random(tv.shape) < 0.5] = 0.0
+    for i, (nf, v) in enumerate(zip(num_files, vocab)):
+        tv[i, v // 2, :nf] = 0.0
+        tv[i, :, nf:] = 99.0
+        tv[i, v:, :] = 77.0
+    return tv, vocab
+
+
+def _rank_dispatch(path):
+    from repro_torch.obs import global_registry
+    return global_registry().counter(
+        "repro_kernel_dispatch_total", "",
+        ("decision", "path")).labels("rank_files", path)
+
+
+def _held_to_plain(got, tv, num_files, vocab, on_card=True):
+    """The kernel's rankings and counts are the plain version's (the
+    torch argsort path, on the CPU and, with ``on_card``, on the card) bit
+    for bit: int32 and float32, contiguous."""
+    plains = [ref.rank_files_ref(tv.cpu(), num_files, vocab)]
+    if on_card:
+        plains.append(ref.rank_files_ref(tv, num_files, vocab))
+    for plain in plains:
+        assert len(got) == len(plain) == len(num_files)
+        for (ids, counts), (wi, wc), nf, v in zip(got, plain, num_files,
+                                                  vocab):
+            assert ids.dtype == torch.int32
+            assert counts.dtype == torch.float32
+            assert ids.is_contiguous() and counts.is_contiguous()
+            assert ids.shape == counts.shape == (v, nf)
+            assert torch.equal(ids.cpu(), wi.cpu())
+            assert torch.equal(counts.cpu().view(torch.int32),
+                               wc.cpu().contiguous().view(torch.int32))
+
+
+RANK_CASES = [(1, (1, 1, 1)), (2, (2, 1, 2)), (4, (3, 4, 1)),
+              (8, (5, 3, 8)), (16, (16, 5, 9)), (32, (31, 17, 3, 5, 32)),
+              (33, (33, 1, 20)), (64, (64, 40, 32, 0)),
+              (256, (256, 200, 65))]
+
+
+@pytest.mark.parametrize("f_pad,num_files", RANK_CASES,
+                         ids=[f"F{f}" for f, _ in RANK_CASES])
+def test_rank_files_on_card(cuda, f_pad, num_files, seeded_rng):
+    """One kernel launch ranks every corpus of the pack, bit-equal to the
+    plain version, a warp a word past 32 files; the dispatch counter and
+    the launch counter each move by one."""
+    tv_np, vocab = _rank_inputs(seeded_rng, f_pad, num_files)
+    tv = torch.from_numpy(tv_np).to(cuda)
+    kernel = _rank_dispatch("kernel")
+    before = (kernel.value, _common.launch_counts().get("rank_files", 0))
+    got = ops.rank_files(tv, num_files, vocab)
+    torch.cuda.synchronize()
+    assert kernel.value == before[0] + 1
+    assert _common.launch_counts()["rank_files"] == before[1] + 1
+    _held_to_plain(got, tv, num_files, vocab)
+    for (ids, _), v in zip(got, vocab):          # the word no file holds
+        assert torch.equal(ids[v // 2].cpu(),
+                           torch.arange(ids.shape[1], dtype=torch.int32))
+
+
+def test_rank_files_any_float_order_on_card(cuda, seeded_rng):
+    """Negative counts, -0.0 beside +0.0, infinities and NaN rank as the
+    plain version's stable argsort ranks them."""
+    tv_np, vocab = _rank_inputs(seeded_rng, 8, (8, 7))
+    special = np.array([-0.0, 0.0, np.nan, -np.inf, np.inf, -2.5, 0.0,
+                        np.nan], np.float32)
+    tv_np[:, :40] = seeded_rng.choice(special, (2, 40, 8))
+    tv_np[:, 40:80] = seeded_rng.normal(size=(2, 40, 8))
+    tv = torch.from_numpy(tv_np).to(cuda)
+    _held_to_plain(ops.rank_files(tv, [8, 7], vocab), tv, [8, 7], vocab,
+                   on_card=False)
+
+
+def test_rank_files_at_scale_on_card(cuda, seeded_rng):
+    """Many blocks a corpus (the grid stride, a group of lanes a word and
+    a warp a word), and more corpora than one launch's table (two
+    launches under one call)."""
+    for f_pad, v_pad in ((32, 70001), (64, 20001)):
+        nf = [f_pad, 19, 30]
+        tv_np, vocab = _rank_inputs(seeded_rng, f_pad, nf, v_pad=v_pad)
+        tv = torch.from_numpy(tv_np).to(cuda)
+        _held_to_plain(ops.rank_files(tv, nf, vocab), tv, nf, vocab)
+    nf = [int(x) for x in seeded_rng.integers(0, 5, 130)]
+    tv_np = seeded_rng.integers(0, 3, (130, 9, 4)).astype(np.float32)
+    vocab = [int(x) for x in seeded_rng.integers(0, 10, 130)]
+    tv = torch.from_numpy(tv_np).to(cuda)
+    _held_to_plain(ops.rank_files(tv, nf, vocab), tv, nf, vocab)
+
+
+def test_rank_files_with_no_files_on_card(cuda):
+    """A pack with no real file (F_pad 0, or every corpus empty) launches
+    nothing and ranks to empty ``[V, 0]`` views; a zero-file store and a
+    pack holding one rank as on the CPU."""
+    kernel = _rank_dispatch("kernel")
+    for f_pad in (0, 3):
+        before = (kernel.value, _common.launch_counts().get("rank_files", 0))
+        got = ops.rank_files(torch.ones((2, 7, f_pad), device=cuda), [0, 0],
+                             [7, 5])
+        assert kernel.value == before[0] + 1
+        assert _common.launch_counts().get("rank_files", 0) == before[1]
+        assert [r.shape for pair in got for r in pair] == [(7, 0)] * 2 + [
+            (5, 0)] * 2
+    g, n = compress_files([], 10)
+    empty = flatten(g, 10, n)
+    ids, counts = tcore.ranked_inverted_index(empty, device=cuda)
+    assert ids.shape == counts.shape == (10, 0)
+    assert ids.dtype == torch.int32 and counts.dtype == torch.float32
+    files, vocab = _single_corpus()
+    g, n = compress_files(files, vocab)
+    gas = [empty, flatten(g, vocab, n)]
+    for got, want in zip(
+            run_batched(GrammarBatch.build(gas), "ranked_inverted_index"),
+            run_batched(GrammarBatch.build(gas, device="cpu"),
+                        "ranked_inverted_index")):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_unbucketed_pack_ranked_index_on_card(cuda):
+    """A pack built with bucket=False (F_pad = 5, not a power of two) and
+    corpora of 5, 3 and 2 files: the ranked index on the card is the CPU
+    pack's, through one kernel launch."""
+    rng = np.random.default_rng(29)
+    gas = []
+    for nf, vocab in ((5, 60), (3, 25), (2, 90)):
+        files = [rng.integers(0, vocab, int(rng.integers(40, 120)))
+                 for _ in range(nf)]
+        g, n = compress_files(files, vocab)
+        gas.append(flatten(g, vocab, n))
+    gpu = GrammarBatch.build(gas, bucket=False)
+    cpu = GrammarBatch.build(gas, bucket=False, device="cpu")
+    assert gpu.F_pad == 5
+    before = _common.launch_counts().get("rank_files", 0)
+    got = run_batched(gpu, "ranked_inverted_index")
+    assert _common.launch_counts()["rank_files"] == before + 1
+    for g, w in zip(got, run_batched(cpu, "ranked_inverted_index")):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("method", SERVE_METHODS)

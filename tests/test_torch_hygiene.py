@@ -29,7 +29,8 @@ from repro_torch.core import (analytics, bottom_up_tables, per_file_weights,
 from repro_torch.data import CompressedCorpus
 from repro_torch.kernels import _common, ops
 from repro_torch.kernels import (bincount, propagate, propagate_batched,
-                                 propagate_fused, propagate_vector)
+                                 propagate_fused, propagate_vector,
+                                 rank_files)
 from repro_torch.obs import global_registry, plan_stage, span
 
 torch.set_num_threads(1)
@@ -38,7 +39,7 @@ REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "kernel_ab.py"]
 KERNEL_MODULES = (bincount, propagate, propagate_batched, propagate_fused,
-                  propagate_vector)
+                  propagate_vector, rank_files)
 
 
 def _imported_modules(path: Path):
